@@ -1,0 +1,78 @@
+"""Clip inference API (as ``pavenet_tpu/apis/inference.py``).
+
+``init_detector(config, device)`` -> model on the device, eval mode;
+``inference_detector(model, imgs)`` -> detections for one clip. The host
+pipeline is the JAX package's own (framework-free), so both packages see
+the same batch.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from pavenet_tpu.config import Config
+from pavenet_tpu.datasets.pipelines.transforms import (
+    DEFAULT_BUCKETS, FormatBatch, LoadClip, Normalize, PadToBucket, Resize)
+
+from ..models.builder import build_detector
+from ..models.detectors.videopose import VideoPoseDetector
+from ..utils import weight_convert
+
+
+def init_detector(config: Union[str, Config], device="cuda", seed: int = 0,
+                  variables: Optional[Mapping] = None,
+                  impl: str = "auto") -> VideoPoseDetector:
+    """Build the detector from a config file or ``Config``.
+
+    Weights: ``variables`` (a JAX ``{'params', 'batch_stats'}`` tree of numpy
+    arrays) when given, else a random init from ``torch.Generator(seed)``
+    that follows the JAX initialisers' fixed values.
+    """
+    if isinstance(config, str):
+        config = Config.fromfile(config)
+    model = build_detector(config.model, impl=impl)
+    if variables is not None:
+        model.load_state_dict(
+            weight_convert.jax_variables_to_state_dict(variables), strict=True)
+    else:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
+
+
+def host_batch(imgs, num_frames: int, img_scale=(1333, 800)) -> dict:
+    """One clip (frame paths or RGB arrays) through the test pipeline:
+    numpy ``img (1,T,H,W,3)``, ``img_shape (1,2)``, ``scale_factor (1,2)``."""
+    if isinstance(imgs, (str, np.ndarray)):
+        imgs = [imgs] * num_frames
+    if isinstance(imgs[0], str):
+        results = LoadClip()({"frame_files": list(imgs)})
+    else:
+        results = {
+            "imgs": [np.asarray(im, np.float32) for im in imgs],
+            "img_shape": np.asarray(imgs[0]).shape[:2],
+            "scale_factor": np.array([1.0, 1.0], np.float32),
+        }
+    for t in (Resize([img_scale], multiscale_mode="value"), Normalize(),
+              PadToBucket(DEFAULT_BUCKETS), FormatBatch()):
+        results = t(results)
+    return {k: np.asarray(results[k])[None]
+            for k in ("img", "img_shape", "scale_factor")}
+
+
+def inference_detector(model: VideoPoseDetector,
+                       imgs: Union[str, np.ndarray, Sequence],
+                       img_scale=(1333, 800)) -> dict:
+    """Run one clip (frame paths or RGB arrays) through the model.
+
+    Returns numpy det_kpts (M, K, 3), det_bboxes (M, 5), det_labels (M,),
+    keep (M,).
+    """
+    device = next(model.parameters()).device
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in host_batch(imgs, model.num_frames,
+                                     img_scale).items()}
+    with torch.inference_mode():
+        out = model.forward_test(batch)
+    return {k: v[0].cpu().numpy() for k, v in out.items()}

@@ -1,0 +1,6 @@
+from .builder import build_detector
+from .detectors import VideoPoseDetector
+from .zoo import dummy_clip_batch, pavenet_r50_frames3
+
+__all__ = ["build_detector", "VideoPoseDetector", "dummy_clip_batch",
+           "pavenet_r50_frames3"]

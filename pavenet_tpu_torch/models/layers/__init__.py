@@ -1,0 +1,4 @@
+from .positional_encoding import sine_positional_encoding
+from .transformer import FFN, MLP, MultiheadAttention
+
+__all__ = ["sine_positional_encoding", "FFN", "MLP", "MultiheadAttention"]

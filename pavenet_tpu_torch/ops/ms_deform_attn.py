@@ -1,0 +1,97 @@
+"""Multi-scale deformable attention (msda), forward.
+
+Contract (as ``pavenet_tpu/ops/ms_deform_attn.py``):
+
+- ``value``: ``(B, N, H, D)``, ``N = sum_l H_l * W_l``
+- ``spatial_shapes``: static ``((H_0, W_0), ...)`` python ints
+- ``sampling_locations``: ``(B, Q, H, L, P, 2)``, xy in ``[0, 1]`` per level
+- ``attention_weights``: ``(B, Q, H, L, P)``, already softmaxed by the caller
+- pixel centres at ``loc * (W, H) - 0.5``; out-of-range corners count zero
+- output: ``(B, Q, H * D)``
+
+``ms_deform_attn_torch`` is the plain PyTorch version (``F.grid_sample``).
+The hand-written CUDA kernel is ``csrc/msda_fwd.cu``; ``ms_deform_attn``
+dispatches between them by the device of ``value``.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _ext
+
+Shapes = Tuple[Tuple[int, int], ...]
+
+
+def _check_shapes(value, spatial_shapes: Sequence, locations) -> Shapes:
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    if sum(h * w for h, w in shapes) != value.shape[1]:
+        raise ValueError(f"token count mismatch: {shapes} vs {value.shape[1]}")
+    if locations.shape[3] != len(shapes):
+        raise ValueError(f"level mismatch: {tuple(locations.shape)} vs "
+                         f"{len(shapes)} levels")
+    return shapes
+
+
+def ms_deform_attn_torch(value: torch.Tensor, spatial_shapes: Sequence,
+                         sampling_locations: torch.Tensor,
+                         attention_weights: torch.Tensor) -> torch.Tensor:
+    """Plain version: one bilinear, zero-padded ``grid_sample`` per level,
+    computed in float32 (as the kernel accumulates) and returned in the
+    value's dtype."""
+    shapes = _check_shapes(value, spatial_shapes, sampling_locations)
+    B, _, H, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+    values = value.float().split([h * w for h, w in shapes], dim=1)
+    grids = 2 * sampling_locations.float() - 1
+    sampled = []
+    for lvl, (h, w) in enumerate(shapes):
+        v = values[lvl].flatten(2).transpose(1, 2).reshape(B * H, D, h, w)
+        g = grids[:, :, :, lvl].transpose(1, 2).flatten(0, 1)  # (BH,Q,P,2)
+        sampled.append(F.grid_sample(v, g, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=False))     # (BH,D,Q,P)
+    a = attention_weights.float().transpose(1, 2).reshape(B * H, 1, Q, L * P)
+    out = (torch.stack(sampled, dim=-2).flatten(-2) * a).sum(-1)  # (BH,D,Q)
+    return out.view(B, H * D, Q).transpose(1, 2).to(value.dtype).contiguous()
+
+
+def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence,
+                   sampling_locations: torch.Tensor,
+                   attention_weights: torch.Tensor,
+                   impl: str = "auto") -> torch.Tensor:
+    """Dispatch msda; ``impl`` in {'auto', 'torch', 'cuda'}.
+
+    'auto' is 'cuda' for a CUDA ``value`` and 'torch' for a CPU one. 'cuda'
+    launches ``csrc/msda_fwd.cu`` or raises; it never falls back.
+    ``ms_deform_attn.launches`` counts the kernel launches made here.
+    """
+    if impl == "auto":
+        impl = "cuda" if value.is_cuda else "torch"
+    if impl == "torch":
+        return ms_deform_attn_torch(value, spatial_shapes, sampling_locations,
+                                    attention_weights)
+    if impl != "cuda":
+        raise ValueError(f"unknown msda impl {impl!r}")
+    if not value.is_cuda:
+        raise ValueError("impl='cuda' needs CUDA tensors; got "
+                         f"{value.device}")
+    shapes = _check_shapes(value, spatial_shapes, sampling_locations)
+    starts, n = [], 0
+    for h, w in shapes:
+        starts.append(n)
+        n += h * w
+    meta = torch.tensor([*(s for hw in shapes for s in hw), *starts],
+                        dtype=torch.int32).to(value.device, non_blocking=True)
+    L = len(shapes)
+    out = _ext.msda_fwd(
+        value.contiguous(), meta[:2 * L].view(L, 2), meta[2 * L:],
+        sampling_locations.float().contiguous(),
+        attention_weights.float().contiguous())
+    ms_deform_attn.launches += 1
+    return out
+
+
+ms_deform_attn.launches = 0

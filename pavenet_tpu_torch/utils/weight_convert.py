@@ -1,0 +1,81 @@
+"""JAX variables -> the port's ``state_dict``.
+
+The port names its modules after the JAX parameter tree, so the conversion
+is a walk over the tree: the path becomes the dotted key and each leaf is
+renamed and laid out by fixed rules:
+
+- Dense ``kernel (in, out)`` -> ``weight (out, in)``
+- Conv ``kernel`` HWIO -> ``weight`` OIHW
+- attention ``query/key/value`` ``kernel (C, H, D)`` -> ``weight (H*D, C)``,
+  ``bias (H, D)`` -> ``(H*D,)``; ``out`` ``kernel (H, D, C)`` ->
+  ``weight (C, H*D)``
+- norm ``scale`` -> ``weight``; ``batch_stats`` ``mean``/``var`` ->
+  ``running_mean``/``running_var``
+- free parameters (embeddings) keep their names.
+
+The fused per-frame ``sampling_offsets``/``attention_weights`` Dense layers
+stay one Linear, output order unchanged. Subtrees that exist only after a
+training init (the RealNVP flows and the heatmap branch) are skipped.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+TRAIN_ONLY = frozenset({"enc_flow", "dec_flow", "flow", "fc_hm"})
+FREE_PARAMS = frozenset({"level_embeds", "query_embedding",
+                         "refine_query_embedding"})
+STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _param(path, leaf: np.ndarray):
+    name, parent = path[-1], (path[-2] if len(path) > 1 else "")
+    if name in FREE_PARAMS:
+        return name, leaf
+    if name == "scale":
+        return "weight", leaf
+    if name == "bias":
+        return "bias", leaf.reshape(-1)
+    if name != "kernel":
+        raise KeyError(f"unknown JAX leaf {'/'.join(path)}")
+    if leaf.ndim == 2:
+        return "weight", leaf.T
+    if leaf.ndim == 4:
+        return "weight", leaf.transpose(3, 2, 0, 1)
+    if leaf.ndim == 3 and parent == "out":      # (H, D, C)
+        return "weight", leaf.reshape(-1, leaf.shape[-1]).T
+    if leaf.ndim == 3:                          # (C, H, D)
+        return "weight", leaf.reshape(leaf.shape[0], -1).T
+    raise KeyError(f"unexpected kernel rank at {'/'.join(path)}: "
+                   f"{leaf.shape}")
+
+
+def _walk(tree: Mapping, path=()):
+    for k, v in tree.items():
+        if k in TRAIN_ONLY:
+            continue
+        if isinstance(v, Mapping):
+            yield from _walk(v, path + (k,))
+        else:
+            yield path + (k,), np.asarray(v)
+
+
+def jax_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': ..., 'batch_stats': ...}`` of numpy (or array-like)
+    leaves -> ``state_dict`` for ``load_state_dict(strict=True)``."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise KeyError(f"unknown JAX collections {sorted(unknown)}")
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _walk(variables.get("params", {})):
+        name, arr = _param(path, leaf)
+        out[".".join(path[:-1] + (name,))] = torch.from_numpy(
+            np.ascontiguousarray(arr, dtype=np.float32))
+    for path, leaf in _walk(variables.get("batch_stats", {})):
+        if path[-1] not in STATS:
+            raise KeyError(f"unknown batch_stats leaf {'/'.join(path)}")
+        out[".".join(path[:-1] + (STATS[path[-1]],))] = torch.from_numpy(
+            np.ascontiguousarray(leaf, dtype=np.float32))
+    return out
