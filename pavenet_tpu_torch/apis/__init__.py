@@ -1,3 +1,5 @@
-from .inference import inference_detector, init_detector
+from .inference import build_model, inference_detector, init_detector
+from .train import init_trainer, train_step
 
-__all__ = ["init_detector", "inference_detector"]
+__all__ = ["build_model", "init_detector", "inference_detector",
+           "init_trainer", "train_step"]

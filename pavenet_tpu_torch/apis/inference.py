@@ -2,8 +2,8 @@
 
 ``init_detector(config, device)`` -> model on the device, eval mode;
 ``inference_detector(model, imgs)`` -> detections for one clip. The host
-pipeline is the JAX package's own (framework-free), so both packages see
-the same batch.
+pipeline (``datasets/pipelines/transforms.py``) is the port's own copy of
+the JAX package's, so both packages see the same batch.
 """
 from __future__ import annotations
 
@@ -12,19 +12,18 @@ from typing import Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from pavenet_tpu.config import Config
-from pavenet_tpu.datasets.pipelines.transforms import (
+from ..config import Config
+from ..datasets.pipelines.transforms import (
     DEFAULT_BUCKETS, FormatBatch, LoadClip, Normalize, PadToBucket, Resize)
-
 from ..models.builder import build_detector
 from ..models.detectors.videopose import VideoPoseDetector
 from ..utils import weight_convert
 
 
-def init_detector(config: Union[str, Config], device="cuda", seed: int = 0,
-                  variables: Optional[Mapping] = None,
-                  impl: str = "auto") -> VideoPoseDetector:
-    """Build the detector from a config file or ``Config``.
+def build_model(config: Union[str, Mapping], seed: int = 0,
+                variables: Optional[Mapping] = None,
+                impl: str = "auto") -> VideoPoseDetector:
+    """Build the detector from a config file or ``Config``, on the CPU.
 
     Weights: ``variables`` (a JAX ``{'params', 'batch_stats'}`` tree of numpy
     arrays) when given, else a random init from ``torch.Generator(seed)``
@@ -32,13 +31,18 @@ def init_detector(config: Union[str, Config], device="cuda", seed: int = 0,
     """
     if isinstance(config, str):
         config = Config.fromfile(config)
-    model = build_detector(config.model, impl=impl)
+    model = build_detector(config["model"], impl=impl)
+    model.init_weights(torch.Generator().manual_seed(seed))
     if variables is not None:
-        model.load_state_dict(
-            weight_convert.jax_variables_to_state_dict(variables), strict=True)
-    else:
-        model.init_weights(torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+        weight_convert.load_jax_variables(model, variables)
+    return model
+
+
+def init_detector(config: Union[str, Mapping], device="cuda", seed: int = 0,
+                  variables: Optional[Mapping] = None,
+                  impl: str = "auto") -> VideoPoseDetector:
+    """``build_model`` on ``device``, in eval mode."""
+    return build_model(config, seed, variables, impl).to(device).eval()
 
 
 def host_batch(imgs, num_frames: int, img_scale=(1333, 800)) -> dict:
@@ -54,11 +58,10 @@ def host_batch(imgs, num_frames: int, img_scale=(1333, 800)) -> dict:
             "img_shape": np.asarray(imgs[0]).shape[:2],
             "scale_factor": np.array([1.0, 1.0], np.float32),
         }
-    for t in (Resize([img_scale], multiscale_mode="value"), Normalize(),
-              PadToBucket(DEFAULT_BUCKETS), FormatBatch()):
+    for t in (Resize(img_scale), Normalize(), PadToBucket(DEFAULT_BUCKETS),
+              FormatBatch()):
         results = t(results)
-    return {k: np.asarray(results[k])[None]
-            for k in ("img", "img_shape", "scale_factor")}
+    return {k: v[None] for k, v in results.items()}
 
 
 def inference_detector(model: VideoPoseDetector,

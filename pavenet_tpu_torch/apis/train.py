@@ -1,0 +1,231 @@
+"""Train step (as ``pavenet_tpu/apis/train.py`` and the optimizer setup of
+``tools/train.py``): parameter groups, the mmcv lr schedule, and AdamW with
+global-norm clipping and gradient accumulation.
+
+The JAX package runs ``optax.MultiSteps(chain(clip_by_global_norm,
+multi_transform({base, backbone, slow: adamw, frozen: set_to_zero})))``.
+Its semantics, kept here:
+
+- the clip norm is taken over every gradient, the frozen parameters' ones
+  included (stem, ``layer1`` and every frozen BatchNorm affine); frozen
+  parameters then get no update and no weight decay;
+- the k mini-batch gradients are averaged (a running mean) and one AdamW
+  update is applied every k-th mini-batch;
+- the lr schedule counts applied updates, not mini-batches;
+- weight decay 1e-4 on every trained parameter, biases, norms and
+  embeddings included (decoupled, as ``torch.optim.AdamW``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, List, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..models.detectors.videopose import VideoPoseDetector
+from ..models.layers.transformer import Dropout
+from .inference import build_model
+
+
+def _param_label(name: str, frozen_stages: int = 1) -> str:
+    """Optimizer group of a parameter from its dotted name, by the JAX
+    package's rule on the parameter path (frozen-BatchNorm models):
+    'frozen', 'backbone' (lr x0.1), 'slow' (offsets, lr x0.1) or 'base'."""
+    keys = name.split(".")
+    if "backbone" in keys:
+        # only the backbone's direct child decides: every block has inner
+        # conv1/bn1 modules that must not match
+        child = keys[keys.index("backbone") + 1]
+        if frozen_stages >= 0 and child.startswith(("conv1", "bn1")):
+            return "frozen"
+        if any(child.startswith(f"layer{s}_")
+               for s in range(1, frozen_stages + 1)):
+            return "frozen"
+        joined = "/".join(keys)
+        if "/bn" in joined or "downsample_bn" in joined:
+            return "frozen"
+        return "backbone"
+    if "sampling_offsets" in keys or "reference_points" in keys:
+        return "slow"
+    return "base"
+
+
+def build_lr_schedule(lr_config: Mapping, base_lr: float,
+                      steps_per_epoch: int,
+                      max_epochs: int = 20) -> Callable[[int], float]:
+    """mmcv ``lr_config`` -> ``lr(t)``, t = applied updates so far.
+
+    Policies 'step' (gamma at each epoch of ``step``) and 'cosine'
+    (``min_lr`` or ``min_lr_ratio``); warmup 'linear', 'constant' or 'exp'
+    over ``warmup_iters`` with ``warmup_ratio``, by mmcv's formulas.
+    """
+    policy = lr_config.get("policy", "step")
+    if policy == "step":
+        gamma = lr_config.get("gamma", 0.1)
+        step = lr_config.get("step", [10])
+        if isinstance(step, int):
+            step = [step]
+        boundaries = {int(e * steps_per_epoch) for e in step}
+
+        def main(t):
+            return base_lr * gamma ** sum(t >= b for b in boundaries)
+    elif policy in ("cosine", "CosineAnnealing"):
+        min_lr = lr_config.get("min_lr")
+        if min_lr is None:
+            min_lr = base_lr * lr_config.get("min_lr_ratio", 0.0)
+        total = max(steps_per_epoch * max_epochs, 1)
+
+        def main(t):
+            frac = min(max(t / total, 0.0), 1.0)
+            return min_lr + (base_lr - min_lr) * 0.5 * (
+                math.cos(math.pi * frac) + 1.0)
+    else:
+        raise KeyError(f"unsupported lr policy {policy!r}")
+
+    warmup = lr_config.get("warmup")
+    if not warmup:
+        return main
+    if warmup not in ("linear", "constant", "exp"):
+        raise KeyError(f"unsupported warmup {warmup!r}")
+    n = lr_config.get("warmup_iters", 500)
+    ratio = lr_config.get("warmup_ratio", 0.1)
+
+    def schedule(t):
+        if t >= n:
+            return main(t)
+        if warmup == "linear":
+            factor = 1.0 - (1.0 - t / n) * (1.0 - ratio)
+        elif warmup == "constant":
+            factor = ratio
+        else:
+            factor = ratio ** (1.0 - t / n)
+        return main(t) * factor
+
+    return schedule
+
+
+def build_optimizer(model: torch.nn.Module, weight_decay: float = 1e-4,
+                    backbone_lr_mult: float = 0.1,
+                    offsets_lr_mult: float = 0.1,
+                    frozen_stages: int = 1) -> torch.optim.AdamW:
+    """AdamW over the 'base', 'backbone' and 'slow' groups, each with its
+    ``lr_mult``; frozen parameters are in no group."""
+    mults = {"base": 1.0, "backbone": backbone_lr_mult,
+             "slow": offsets_lr_mult}
+    groups = {label: [] for label in mults}
+    for name, p in model.named_parameters():
+        label = _param_label(name, frozen_stages)
+        if label != "frozen":
+            groups[label].append(p)
+    return torch.optim.AdamW(
+        [dict(params=groups[k], lr_mult=m, label=k)
+         for k, m in mults.items() if groups[k]],
+        lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """A model with its optimizer, schedule and accumulation state."""
+    model: VideoPoseDetector
+    optimizer: torch.optim.AdamW
+    schedule: Callable[[int], float]
+    grad_clip: float
+    accumulate_steps: int
+    generator: torch.Generator   # dropout masks
+    max_gt: int                  # GT slots per image of the config
+    mini_step: int = 0           # mini-batches since the last update
+    updates: int = 0             # applied updates (the schedule's count)
+    acc: Optional[List[torch.Tensor]] = None   # mean of the mini-batch grads
+
+
+def init_trainer(config: Union[str, Mapping], device="cuda", seed: int = 0,
+                 variables: Optional[Mapping] = None, impl: str = "auto",
+                 steps_per_epoch: int = 20) -> TrainState:
+    """Model (``variables`` or a random init from ``seed``) on ``device`` in
+    train mode, with the optimizer, schedule and accumulation of the
+    config's ``optimizer``, ``optimizer_config``, ``lr_config`` and
+    ``runner`` (as ``tools/train.py``); dropout masks come from a generator
+    seeded with ``seed``. ``steps_per_epoch`` (mini-batches) places the
+    schedule's epoch boundaries."""
+    if isinstance(config, str):
+        config = Config.fromfile(config)
+    model = build_model(config, seed, variables, impl).to(device).train()
+    opt_cfg = config.get("optimizer", {})
+    hook_cfg = config.get("optimizer_config", {})
+    custom = (opt_cfg.get("paramwise_cfg", {}) or {}).get("custom_keys", {})
+    schedule = build_lr_schedule(
+        config.get("lr_config", {}) or {}, opt_cfg.get("lr", 2e-5),
+        steps_per_epoch, config.get("runner", {}).get("max_epochs", 20))
+    optimizer = build_optimizer(
+        model, weight_decay=opt_cfg.get("weight_decay", 1e-4),
+        backbone_lr_mult=custom.get("backbone", {}).get("lr_mult", 0.1),
+        offsets_lr_mult=custom.get("sampling_offsets", {}).get("lr_mult",
+                                                               0.1),
+        frozen_stages=model.frozen_stages)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+    return TrainState(
+        model=model, optimizer=optimizer, schedule=schedule,
+        grad_clip=hook_cfg.get("grad_clip", {}).get("max_norm", 0.1),
+        accumulate_steps=hook_cfg.get("cumulative_iters", 8),
+        generator=generator, max_gt=config.get("max_gt", 30))
+
+
+def to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:
+    """A numpy (or tensor) batch as tensors on ``device``."""
+    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                               else v).to(device)
+            for k, v in batch.items()}
+
+
+def apply_update(state: TrainState):
+    """Clip the accumulated gradient by its global norm (all parameters) and
+    take one AdamW step with the scheduled lr of each group."""
+    params = list(state.model.parameters())
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(a) for a in state.acc]))
+    scale = torch.where(norm < state.grad_clip, torch.ones_like(norm),
+                        state.grad_clip / norm)
+    for p, a in zip(params, state.acc):
+        p.grad = a.mul_(scale)
+    lr = state.schedule(state.updates)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr * group["lr_mult"]
+    state.optimizer.step()
+    for p in params:
+        p.grad = None
+    state.acc = None
+    state.updates += 1
+
+
+def accumulate(state: TrainState):
+    """Fold the parameters' ``.grad`` (None counts as zero) into the running
+    mean and clear it; every ``accumulate_steps``-th call applies the
+    update."""
+    n = state.mini_step
+    params = list(state.model.parameters())
+    if state.acc is None:
+        state.acc = [torch.zeros_like(p) for p in params]
+    for p, a in zip(params, state.acc):
+        a.add_(((p.grad if p.grad is not None else 0) - a) / (n + 1))
+        p.grad = None
+    state.mini_step = (n + 1) % state.accumulate_steps
+    if state.mini_step == 0:
+        apply_update(state)
+
+
+def train_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
+    """One mini-batch: forward, backward and ``accumulate``. Returns the
+    detached losses."""
+    model = state.model
+    model.train()
+    losses = model.forward_train(
+        to_device(batch, next(model.parameters()).device))
+    losses["loss"].backward()
+    accumulate(state)
+    return {k: v.detach() for k, v in losses.items()}

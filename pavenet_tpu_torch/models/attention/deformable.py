@@ -1,5 +1,5 @@
 """Deformable attention modules (as ``pavenet_tpu/models/attention/
-deformable.py``), eval mode.
+deformable.py``).
 
 - ``MultiScaleDeformableAttention``: single-frame encoder self-attention.
 - ``MultiFrameDeformableAttention``: joint-decoder cross-attention over T
@@ -9,6 +9,7 @@ deformable.py``), eval mode.
 
 The frame axis is folded into the batch for one msda call per layer; the
 per-frame offset and weight heads are one fused Linear of width ``T*...``.
+Each applies dropout after its output projection, as the JAX modules do.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from ...ops.ms_deform_attn import ms_deform_attn
+from ..layers.transformer import Dropout
 
 
 def spoke_offset_bias(num_heads: int, num_levels: int,
@@ -65,7 +67,7 @@ class MultiScaleDeformableAttention(nn.Module):
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
                  num_levels: int = 4, num_points: int = 4,
-                 impl: str = "auto"):
+                 dropout: float = 0.1, impl: str = "auto"):
         super().__init__()
         self.embed_dims, self.num_heads = embed_dims, num_heads
         self.num_levels, self.num_points = num_levels, num_points
@@ -75,6 +77,7 @@ class MultiScaleDeformableAttention(nn.Module):
         self.sampling_offsets = nn.Linear(embed_dims, HLP * 2)
         self.attention_weights = nn.Linear(embed_dims, HLP)
         self.output_proj = nn.Linear(embed_dims, embed_dims)
+        self.drop = Dropout(dropout)
 
     def init_fixed_(self, generator):
         nn.init.xavier_uniform_(self.value_proj.weight, generator=generator)
@@ -108,7 +111,7 @@ class MultiScaleDeformableAttention(nn.Module):
                                             spatial_shapes)
         out = ms_deform_attn(v, spatial_shapes, locations, weights,
                              impl=self.impl)
-        return identity + self.output_proj(out)
+        return identity + self.drop(self.output_proj(out))
 
 
 class _MultiFrameBase(nn.Module):
@@ -117,7 +120,7 @@ class _MultiFrameBase(nn.Module):
 
     def __init__(self, num_frames: int = 3, embed_dims: int = 256,
                  num_heads: int = 8, num_levels: int = 4, num_points: int = 4,
-                 impl: str = "auto"):
+                 dropout: float = 0.1, impl: str = "auto"):
         super().__init__()
         self.num_frames, self.embed_dims = num_frames, embed_dims
         self.num_heads, self.num_levels = num_heads, num_levels
@@ -127,6 +130,7 @@ class _MultiFrameBase(nn.Module):
         self.sampling_offsets = nn.Linear(embed_dims, THLP * 2)
         self.attention_weights = nn.Linear(embed_dims, THLP)
         self.output_proj = nn.Linear(embed_dims, embed_dims)
+        self.drop = Dropout(dropout)
 
     def init_fixed_(self, generator):
         nn.init.xavier_uniform_(self.value_proj.weight, generator=generator)
@@ -169,7 +173,8 @@ class _MultiFrameBase(nn.Module):
 
     def _attend_and_fuse(self, v, locations, weights, frame_w,
                          spatial_shapes):
-        """One folded (B*T) msda call, then the frame fusion."""
+        """One folded (B*T) msda call, the frame fusion, the output
+        projection and its dropout."""
         B, T, N, H, D = v.shape
         Q = locations.shape[2]
         L, P = self.num_levels, self.num_points
@@ -178,7 +183,7 @@ class _MultiFrameBase(nn.Module):
             locations.reshape(B * T, Q, H, L, P, 2),
             weights.reshape(B * T, Q, H, L, P), impl=self.impl)
         out = (out.view(B, T, Q, H, D) * frame_w[..., None]).sum(1)
-        return self.output_proj(out.reshape(B, Q, H * D))
+        return self.drop(self.output_proj(out.reshape(B, Q, H * D)))
 
 
 class MultiFrameDeformableAttention(_MultiFrameBase):

@@ -1,9 +1,9 @@
 """ResNet backbone with frozen BatchNorm (as ``pavenet_tpu/models/backbones/
 resnet.py``, 'pytorch' style: stride in the 3x3 conv), NCHW.
 
-Only the frozen-statistics norm of the serving path is here; trainable
-BatchNorm comes with the train step. Frames are folded into the batch by the
-caller.
+Only the frozen-statistics norm is here (every pose config sets
+``norm_eval=True``); trainable BatchNorm waits for a later slice. Frames are
+folded into the batch by the caller.
 """
 from __future__ import annotations
 
@@ -23,13 +23,16 @@ ARCH_SETTINGS = {
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm with frozen statistics and affine parameters (buffers)."""
+    """BatchNorm with frozen statistics (buffers). The affine ``weight`` and
+    ``bias`` are parameters, as in the JAX package (``self.param``): they
+    receive gradients, which count in the train step's clip norm, but the
+    optimizer never updates them."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 

@@ -1,10 +1,19 @@
-"""Config dict -> detector (as ``pavenet_tpu/models/builder.py``,
-VideoPoseV1 serving path only)."""
+"""Config dict -> detector (as ``pavenet_tpu/models/builder.py``, the
+VideoPoseV1 path with RLE losses and frozen BatchNorm)."""
 from __future__ import annotations
 
-from pavenet_tpu.registry import split_scope_key
-
 from .detectors.videopose import VideoPoseDetector
+
+KNOWN_SCOPES = ("opera", "mmdet", "mmcv", "pavenet", "torch")
+
+
+def split_scope_key(key: str):
+    """Split 'scope.Key' into (scope, Key); scope is None if absent (as
+    ``pavenet_tpu/registry.py``)."""
+    split_index = key.find(".")
+    if split_index != -1 and key[:split_index] in KNOWN_SCOPES:
+        return key[:split_index], key[split_index + 1:]
+    return None, key
 
 
 def _type_name(cfg, default=None):
@@ -13,12 +22,22 @@ def _type_name(cfg, default=None):
     return split_scope_key(cfg.get("type", default))[1]
 
 
+def _loss_weight(head, key, default):
+    return head.get(key, {}).get("loss_weight", default)
+
+
 def build_detector(cfg: dict, impl: str = "auto") -> VideoPoseDetector:
-    """Build the video pose detector from a reference-style model config."""
+    """Build the video pose detector from a reference-style model config.
+
+    Raises on what the port does not have yet: another detector, backbone
+    or head, trainable BatchNorm, a frozen backbone and neck (VideoPoseV2),
+    the windowed encoder, a keypoint loss other than RLE, and OKS or
+    heatmap losses with a weight above 0.
+    """
     det_type = _type_name(cfg)
     if det_type != "VideoPoseV1":
         raise KeyError(f"unsupported detector type {det_type!r} (the port "
-                       "serves VideoPoseV1)")
+                       "has VideoPoseV1)")
     backbone = cfg.get("backbone", {})
     if _type_name(backbone, "ResNet") != "ResNet":
         raise KeyError(f"unsupported backbone {backbone.get('type')!r}")
@@ -32,11 +51,22 @@ def build_detector(cfg: dict, impl: str = "auto") -> VideoPoseDetector:
     encoder = transformer.get("encoder", {})
     if encoder.get("mode", "deformable") != "deformable":
         raise KeyError("the windowed encoder is not ported")
+    if _type_name(head.get("loss_kpt"), "RLELoss") != "RLELoss":
+        raise KeyError(f"unsupported loss_kpt {head['loss_kpt']['type']!r} "
+                       "(the port has RLELoss)")
+    for key in ("loss_oks", "loss_oks_refine", "loss_hm"):
+        if _loss_weight(head, key, 0.0) > 0:
+            raise KeyError(f"{key} with a weight above 0 is not ported")
     enc_layers = encoder.get("transformerlayers", {})
     test_cfg = cfg.get("test_cfg") or {}
     if not (test_cfg.get("with_rescoring", True)
             and test_cfg.get("with_nms", True)):
         raise KeyError("the port always rescores and runs OKS-NMS")
+    assigner = (cfg.get("train_cfg") or {}).get("assigner", {})
+
+    def cost_weight(name, default):
+        return assigner.get(name, {}).get("weight", default)
+
     return VideoPoseDetector(
         num_frames=head.get("num_frames", 3),
         num_keypoints=head.get("num_keypoints", 15),
@@ -44,11 +74,20 @@ def build_detector(cfg: dict, impl: str = "auto") -> VideoPoseDetector:
         num_query=head.get("num_query", 300),
         backbone_depth=backbone.get("depth", 50),
         backbone_out_indices=tuple(backbone.get("out_indices", (1, 2, 3))),
+        frozen_stages=backbone.get("frozen_stages", 1),
         embed_dims=enc_layers.get("attn_cfgs", {}).get("embed_dims", 256),
         feedforward_channels=enc_layers.get("feedforward_channels", 1024),
+        dropout=enc_layers.get("ffn_dropout", 0.1),
         num_encoder_layers=encoder.get("num_layers", 6),
         num_decoder_layers=transformer.get("decoder", {}).get("num_layers", 3),
         num_refine_layers=transformer.get("refine_decoder", {}).get(
             "num_layers", 2),
         max_per_img=test_cfg.get("max_per_img", 100),
+        loss_cls_weight=_loss_weight(head, "loss_cls", 0.5),
+        loss_kpt_weight=_loss_weight(head, "loss_kpt", 1.0),
+        loss_kpt_rpn_weight=_loss_weight(head, "loss_kpt_rpn", 1.0),
+        loss_kpt_refine_weight=_loss_weight(head, "loss_kpt_refine", 1.0),
+        cls_cost_weight=cost_weight("cls_cost", 2.0),
+        kpt_cost_weight=cost_weight("kpt_cost", 70.0),
+        oks_cost_weight=cost_weight("oks_cost", 7.0),
         impl=impl)

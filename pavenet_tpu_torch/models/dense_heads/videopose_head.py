@@ -1,9 +1,10 @@
-"""PAVE-Net video pose head, serving path (as ``pavenet_tpu/models/
-dense_heads/videopose_head.py``): deformable encoder, two-stage top-k
-proposals, per-frame pose decoder and the joint (refine) decoder.
+"""PAVE-Net video pose head (as ``pavenet_tpu/models/dense_heads/
+videopose_head.py``): deformable encoder, two-stage top-k proposals,
+per-frame pose decoder, the joint (refine) decoder and the three RealNVP
+flows of the RLE losses.
 
-Batch-first with an explicit frame axis ``(B, T, ...)``. The heatmap branch
-and the RealNVP flows are train-only and come with the train step.
+Batch-first with an explicit frame axis ``(B, T, ...)``. The PETR heatmap
+branch (weight 0 in every video config) is not ported.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from ..attention.deformable import (
     MultiFrameDeformableAttention,
     MultiFramePoseDeformableAttention,
 )
+from ..flows.realnvp import RealNVP
 from ..layers.positional_encoding import sine_positional_encoding
 from ..layers.transformer import FFN, MLP, MultiheadAttention
 
@@ -63,12 +65,14 @@ class EncoderLayer(nn.Module):
     """Deformable self-attention encoder layer, post-norm."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_levels=4,
-                 num_points=4, feedforward_channels=1024, impl="auto"):
+                 num_points=4, feedforward_channels=1024, dropout=0.1,
+                 impl="auto"):
         super().__init__()
         self.attn = MultiScaleDeformableAttention(
-            embed_dims, num_heads, num_levels, num_points, impl=impl)
+            embed_dims, num_heads, num_levels, num_points, dropout=dropout,
+            impl=impl)
         self.norm1 = _layer_norm(embed_dims)
-        self.ffn = FFN(embed_dims, feedforward_channels)
+        self.ffn = FFN(embed_dims, feedforward_channels, dropout)
         self.norm2 = _layer_norm(embed_dims)
 
     def forward(self, x, pos, reference_points, spatial_shapes,
@@ -87,7 +91,7 @@ class VideoPoseHead(nn.Module):
                  num_decoder_layers: int = 3, num_refine_layers: int = 2,
                  encoder_num_points: int = 4, refine_num_points: int = 4,
                  feedforward_channels: int = 1024, num_kpt_fcs: int = 2,
-                 impl: str = "auto"):
+                 dropout: float = 0.1, impl: str = "auto"):
         super().__init__()
         C, K, T = embed_dims, num_keypoints, num_frames
         self.num_frames, self.num_keypoints = T, K
@@ -101,7 +105,7 @@ class VideoPoseHead(nn.Module):
         for i in range(num_encoder_layers):
             add(f"encoder_layer{i}", EncoderLayer(
                 C, num_heads, num_levels, encoder_num_points,
-                feedforward_channels, impl))
+                feedforward_channels, dropout, impl))
         self.num_encoder_layers = num_encoder_layers
         self.level_embeds = nn.Parameter(torch.empty(num_levels, C))
         self.enc_output = nn.Linear(C, C)
@@ -110,12 +114,12 @@ class VideoPoseHead(nn.Module):
         self.refine_query_embedding = nn.Parameter(torch.empty(K, 2 * C))
 
         for i in range(num_decoder_layers):
-            add(f"dec_self_attn{i}", MultiheadAttention(C, num_heads))
+            add(f"dec_self_attn{i}", MultiheadAttention(C, num_heads, dropout))
             add(f"dec_cross_attn{i}", MultiFramePoseDeformableAttention(
-                T, C, num_heads, num_levels, K, impl=impl))
+                T, C, num_heads, num_levels, K, dropout=dropout, impl=impl))
             for j in (1, 2, 3):
                 add(f"dec_norm{j}_{i}", _layer_norm(C))
-            add(f"dec_ffn{i}", FFN(C, feedforward_channels))
+            add(f"dec_ffn{i}", FFN(C, feedforward_channels, dropout))
         kpt_hidden = (512,) * (num_kpt_fcs + 1)
         for i in range(num_pred):
             add(f"cls_branch{i}", nn.Linear(C, num_classes))
@@ -128,16 +132,21 @@ class VideoPoseHead(nn.Module):
                 add(f"aux_kpt_branch_f{f}_l{i}", MLP(C, kpt_hidden, 2 * K))
 
         for i in range(num_refine_layers):
-            add(f"ref_self_attn{i}", MultiheadAttention(C, num_heads))
+            add(f"ref_self_attn{i}", MultiheadAttention(C, num_heads, dropout))
             add(f"ref_cross_attn{i}", MultiFrameDeformableAttention(
-                T, C, num_heads, num_levels, refine_num_points, impl=impl))
+                T, C, num_heads, num_levels, refine_num_points,
+                dropout=dropout, impl=impl))
             for j in (1, 2, 3):
                 add(f"ref_norm{j}_{i}", _layer_norm(C))
-            add(f"ref_ffn{i}", FFN(C, feedforward_channels))
+            add(f"ref_ffn{i}", FFN(C, feedforward_channels, dropout))
             add(f"refine_sigma_branch{i}", SigmaBranch(C, 2, num_kpt_fcs))
             for f in range(T):
                 add(f"refine_kpt_branch_f{f}_l{i}", MLP(
                     C, (C,) * num_kpt_fcs, 2, zero_init_last=True))
+        # RLE flows: encoder proposals, pose decoder, joint decoder
+        self.enc_flow = RealNVP()
+        self.dec_flow = RealNVP()
+        self.flow = RealNVP()
 
     def init_fixed_(self, generator):
         for p in (self.level_embeds, self.query_embedding,
@@ -256,8 +265,9 @@ class VideoPoseHead(nn.Module):
             return torch.gather(
                 a, 1, topk_idx[..., None].expand(B, NQ, a.shape[-1]))
 
-        topk_kpts_unact = gather(enc_kpt_unact)
-        tgt = gather(out_mem)
+        # the decoder starts from detached proposals (JAX stop_gradient)
+        topk_kpts_unact = gather(enc_kpt_unact).detach()
+        tgt = gather(out_mem).detach()
 
         # --- pose decoder ---
         query_pos, query_content = self.query_embedding.split(C, -1)

@@ -1,11 +1,15 @@
-"""PAVE-Net detector, serving path (as ``pavenet_tpu/models/detectors/
-videopose.py``): backbone + neck + video pose head + Poseur rescoring and
-OKS-NMS.
+"""PAVE-Net detector (as ``pavenet_tpu/models/detectors/videopose.py``):
+backbone + neck + video pose head, with the train step's losses
+(``forward_train``: Hungarian matching, focal and RLE losses) and the test
+path's Poseur rescoring and OKS-NMS (``forward_test``).
 
 Batch dict (tensors on the model's device):
     img:          (B, T, H, W, 3) float32, normalised
     img_shape:    (B, 2) int (valid h, w) before padding
     scale_factor: (B, 2) float32 (w_scale, h_scale) test-time rescale
+    gt_keypoints: (B, G, K, 3) xyv, unnormalised (train)
+    gt_areas:     (B, G) float32 (train)
+    gt_valid:     (B, G) bool (train)
 """
 from __future__ import annotations
 
@@ -18,17 +22,10 @@ import torch.nn as nn
 from ..backbones.resnet import ResNet
 from ..necks.channel_mapper import ChannelMapper
 from ..dense_heads.videopose_head import VideoPoseHead
+from ..losses import OKS_SIGMAS, rle_loss, sigmoid_focal_loss
+from ...core.assigner import (PoseTargets, build_pose_targets,
+                              hungarian_assign, pose_match_cost)
 from ...ops.nms import oks_nms_keep
-
-# per-keypoint OKS sigmas (``pavenet_tpu/models/losses/oks_loss.py``)
-OKS_SIGMAS = {
-    17: (.26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62, 1.07, 1.07,
-         .87, .87, .89, .89),
-    15: (.26, .79, .79, .79, .79, .72, .72, .62, .62, 1.07, 1.07, .87, .87,
-         .89, .89),
-    14: (.79, .79, .72, .72, .62, .62, 1.07, 1.07, .87, .87, .89, .89, .79,
-         .79),
-}
 
 
 def lecun_normal_(tensor: torch.Tensor, generator: torch.Generator):
@@ -49,11 +46,25 @@ class VideoPoseDetector(nn.Module):
                  backbone_out_indices: Tuple[int, ...] = (1, 2, 3),
                  embed_dims: int = 256, num_encoder_layers: int = 6,
                  num_decoder_layers: int = 3, num_refine_layers: int = 2,
-                 feedforward_channels: int = 1024, max_per_img: int = 20,
-                 impl: str = "auto"):
+                 feedforward_channels: int = 1024, dropout: float = 0.1,
+                 max_per_img: int = 20, frozen_stages: int = 1,
+                 loss_cls_weight: float = 0.5, loss_kpt_weight: float = 1.0,
+                 loss_kpt_rpn_weight: float = 1.0,
+                 loss_kpt_refine_weight: float = 1.0,
+                 cls_cost_weight: float = 2.0, kpt_cost_weight: float = 70.0,
+                 oks_cost_weight: float = 7.0, impl: str = "auto"):
         super().__init__()
         self.num_frames, self.num_keypoints = num_frames, num_keypoints
+        self.num_classes = num_classes
         self.max_per_img = max_per_img
+        self.frozen_stages = frozen_stages  # read by the optimizer's labels
+        self.loss_cls_weight = loss_cls_weight
+        self.loss_kpt_weight = loss_kpt_weight
+        self.loss_kpt_rpn_weight = loss_kpt_rpn_weight
+        self.loss_kpt_refine_weight = loss_kpt_refine_weight
+        self.cost_weights = dict(cls_weight=cls_cost_weight,
+                                 kpt_weight=kpt_cost_weight,
+                                 oks_weight=oks_cost_weight)
         self.backbone = ResNet(backbone_depth, backbone_out_indices)
         self.neck = ChannelMapper(self.backbone.out_channels, embed_dims,
                                   num_outs=4)
@@ -63,10 +74,11 @@ class VideoPoseDetector(nn.Module):
             embed_dims=embed_dims, num_encoder_layers=num_encoder_layers,
             num_decoder_layers=num_decoder_layers,
             num_refine_layers=num_refine_layers,
-            feedforward_channels=feedforward_channels, impl=impl)
-        self.register_buffer(
-            "oks_sigmas",
-            torch.tensor(OKS_SIGMAS[num_keypoints]) / 10.0, persistent=False)
+            feedforward_channels=feedforward_channels, dropout=dropout,
+            impl=impl)
+        self.register_buffer("oks_sigmas",
+                             torch.tensor(OKS_SIGMAS[num_keypoints]),
+                             persistent=False)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -122,6 +134,101 @@ class VideoPoseDetector(nn.Module):
         outs = self.head(feats, mlvl_masks, valid_ratios)
         outs["valid_ratios"] = valid_ratios
         return outs
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def match(self, outs, batch):
+        """Hungarian matching of every prediction set of ``outs``: the
+        decoder layers in order, then the encoder proposals. Returns one
+        ``PoseTargets`` per set; the costs cross to the host once."""
+        K = self.num_keypoints
+        sets = [(outs["all_cls_scores"][d], outs["all_kpt_preds"][d])
+                for d in range(outs["all_cls_scores"].shape[0])]
+        sets.append((outs["enc_cls_scores"], outs["enc_kpt_preds"]))
+        with torch.no_grad():
+            costs = [pose_match_cost(
+                cls, kpt.unflatten(-1, (K, 2)),
+                batch["gt_keypoints"], batch["gt_areas"], batch["img_shape"],
+                self.oks_sigmas, **self.cost_weights) for cls, kpt in sets]
+        query_idx = hungarian_assign(costs, batch["gt_valid"])
+        return [build_pose_targets(
+            idx, batch["gt_valid"], batch["gt_keypoints"], batch["gt_areas"],
+            batch["img_shape"], cls.shape[1], self.num_classes)
+            for idx, (cls, _) in zip(query_idx, sets)]
+
+    def _gather_pos(self, preds, targets: PoseTargets):
+        """Matched predictions per GT slot: (B, Q, 2K) -> (B, G, K, 2)."""
+        B, K = preds.shape[0], self.num_keypoints
+        idx = targets.query_idx.clamp(min=0)
+        return torch.gather(preds.view(B, -1, K, 2), 1,
+                            idx[..., None, None].expand(*idx.shape, K, 2))
+
+    def _rle(self, flow, pred, sigma, targets: PoseTargets, num_valid_kpt,
+             weight):
+        """RLE loss of matched (B, G, K, 2) predictions and sigmas."""
+        sigma = sigma.clamp(min=1e-4)
+        w = targets.kpt_weights
+        bar_mu = torch.where(w > 0, (pred - targets.kpt_targets) / sigma,
+                             torch.zeros_like(pred))
+        log_phi = flow.log_prob(bar_mu.reshape(-1, 2)).view(w.shape[:-1])
+        return rle_loss(pred, sigma, targets.kpt_targets, w, log_phi,
+                        num_valid_kpt, weight)
+
+    def _cls_loss(self, cls_scores, targets: PoseTargets):
+        """Focal loss (gamma 2, alpha 0.25) over all queries."""
+        avg = targets.num_pos.sum().clamp(min=1.0)
+        return sigmoid_focal_loss(
+            cls_scores.reshape(-1, self.num_classes),
+            targets.labels.reshape(-1), avg_factor=avg) * self.loss_cls_weight
+
+    def _set_losses(self, flow, cls_scores, kpt_preds, sigma_preds,
+                    targets: PoseTargets, kpt_weight):
+        num_valid_kpt = targets.kpt_weights.sum().clamp(min=1.0)
+        return (self._cls_loss(cls_scores, targets),
+                self._rle(flow, self._gather_pos(kpt_preds, targets),
+                          self._gather_pos(sigma_preds, targets), targets,
+                          num_valid_kpt, kpt_weight))
+
+    def forward_train(self, batch):
+        """Loss dict of one batch, as the JAX ``forward_train``: per pose
+        decoder layer (prefix ``d{i}.``, the last layer unprefixed), the
+        encoder proposals over all N tokens (``enc_``), the joint decoder on
+        the last layer's matched poses (``d{r}.loss_kpt_refine``), and their
+        sum ``loss``."""
+        outs = self.forward_outputs(batch["img"], batch["img_shape"])
+        head = self.head
+        *dec_targets, enc_targets = self.match(outs, batch)
+        losses = {}
+        D = len(dec_targets)
+        for d, targets in enumerate(dec_targets):
+            prefix = "" if d == D - 1 else f"d{d}."
+            losses[prefix + "loss_cls"], losses[prefix + "loss_kpt"] = \
+                self._set_losses(head.dec_flow, outs["all_cls_scores"][d],
+                                 outs["all_kpt_preds"][d],
+                                 outs["all_sigma_preds"][d], targets,
+                                 self.loss_kpt_weight)
+        losses["enc_loss_cls"], losses["enc_loss_kpt"] = self._set_losses(
+            head.enc_flow, outs["enc_cls_scores"], outs["enc_kpt_preds"],
+            outs["enc_sigma_preds"], enc_targets, self.loss_kpt_rpn_weight)
+
+        # joint decoder on the matched poses of the last layer, detached
+        last = dec_targets[-1]
+        frame_preds = outs["frame_kpt_preds"]                # (B,T,Q,2K)
+        B, T = frame_preds.shape[:2]
+        idx = last.query_idx.clamp(min=0)                    # (B, G)
+        ref_poses = torch.gather(frame_preds, 2, idx[:, None, :, None].expand(
+            B, T, idx.shape[1], frame_preds.shape[-1])).transpose(1, 2)
+        refine_kpts, _, refine_sigmas = head.forward_refine(
+            outs["memory"], outs["mask_flatten"], outs["valid_ratios"],
+            ref_poses.detach(), outs["spatial_shapes"])
+        num_valid_kpt = last.kpt_weights.sum().clamp(min=1.0)
+        for r in range(refine_kpts.shape[0]):
+            losses[f"d{r}.loss_kpt_refine"] = self._rle(
+                head.flow, refine_kpts[r], refine_sigmas[r], last,
+                num_valid_kpt, self.loss_kpt_refine_weight)
+        losses["loss"] = sum(losses.values())
+        return losses
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -20,13 +20,30 @@ def pavenet_r50_frames3(**overrides) -> VideoPoseDetector:
 
 def dummy_clip_batch(rng: np.random.RandomState, batch_size: int = 1,
                      num_frames: int = 3, height: int = 800,
-                     width: int = 1344) -> dict:
-    """Synthetic inference batch in the canonical numpy layout, drawn as
-    ``pavenet_tpu.models.zoo.dummy_clip_batch`` draws it."""
+                     width: int = 1344, num_keypoints: int = 15,
+                     max_gt: int = 30, train: bool = False) -> dict:
+    """Synthetic batch in the canonical numpy layout (see
+    ``VideoPoseDetector``), drawn as ``pavenet_tpu.models.zoo.
+    dummy_clip_batch`` draws it; ``train`` adds G=``max_gt`` GT slots, the
+    first quarter valid."""
     B, T = batch_size, num_frames
-    return {
+    batch = {
         "img": rng.randn(B, T, height, width, 3).astype(np.float32),
         "img_shape": np.tile(
             np.array([[height, width - 11]], np.int32), (B, 1)),
         "scale_factor": np.full((B, 2), 0.6945, np.float32),
     }
+    if train:
+        K, G = num_keypoints, max_gt
+        kpts = rng.rand(B, G, K, 3).astype(np.float32)
+        kpts[..., 0] *= width - 11
+        kpts[..., 1] *= height
+        kpts[..., 2] = (kpts[..., 2] > 0.2).astype(np.float32)
+        kpts[..., 0, 2] = 1.0
+        valid = np.zeros((B, G), bool)
+        valid[:, : max(1, G // 4)] = True
+        batch.update(
+            gt_keypoints=kpts,
+            gt_areas=(rng.rand(B, G) * 5e3 + 1e3).astype(np.float32),
+            gt_valid=valid)
+    return batch

@@ -1,4 +1,4 @@
-"""Multi-scale deformable attention (msda), forward.
+"""Multi-scale deformable attention (msda), forward and backward.
 
 Contract (as ``pavenet_tpu/ops/ms_deform_attn.py``):
 
@@ -9,9 +9,11 @@ Contract (as ``pavenet_tpu/ops/ms_deform_attn.py``):
 - pixel centres at ``loc * (W, H) - 0.5``; out-of-range corners count zero
 - output: ``(B, Q, H * D)``
 
-``ms_deform_attn_torch`` is the plain PyTorch version (``F.grid_sample``).
-The hand-written CUDA kernel is ``csrc/msda_fwd.cu``; ``ms_deform_attn``
-dispatches between them by the device of ``value``.
+``ms_deform_attn_torch`` is the plain PyTorch version (``F.grid_sample``;
+its gradient is autograd through it). The hand-written CUDA kernels are
+``csrc/msda_fwd.cu`` and ``csrc/msda_bwd.cu``, joined by
+``MSDeformAttnFunction``; ``ms_deform_attn`` dispatches by the device of
+``value``.
 """
 from __future__ import annotations
 
@@ -58,6 +60,29 @@ def ms_deform_attn_torch(value: torch.Tensor, spatial_shapes: Sequence,
     return out.view(B, H * D, Q).transpose(1, 2).to(value.dtype).contiguous()
 
 
+class MSDeformAttnFunction(torch.autograd.Function):
+    """msda through the CUDA kernels: forward ``csrc/msda_fwd.cu``, backward
+    ``csrc/msda_bwd.cu``. Saves only value, locations and weights; the
+    backward kernel recomputes the bilinear taps (as the JAX path
+    rematerialises them) instead of keeping them alive."""
+
+    @staticmethod
+    def forward(ctx, value, shapes, level_start, locations, weights):
+        ctx.save_for_backward(value, shapes, level_start, locations, weights)
+        out = _ext.msda_fwd(value, shapes, level_start, locations, weights)
+        ms_deform_attn.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, shapes, level_start, locations, weights = ctx.saved_tensors
+        grads = _ext.msda_bwd(value, shapes, level_start, locations, weights,
+                              grad_out.float().contiguous())
+        ms_deform_attn.backward_launches += 1
+        grad_value, grad_loc, grad_attn = grads
+        return grad_value, None, None, grad_loc, grad_attn
+
+
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence,
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor,
@@ -65,8 +90,9 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence,
     """Dispatch msda; ``impl`` in {'auto', 'torch', 'cuda'}.
 
     'auto' is 'cuda' for a CUDA ``value`` and 'torch' for a CPU one. 'cuda'
-    launches ``csrc/msda_fwd.cu`` or raises; it never falls back.
-    ``ms_deform_attn.launches`` counts the kernel launches made here.
+    runs ``MSDeformAttnFunction`` (the forward and backward kernels) or
+    raises; it never falls back. ``ms_deform_attn.launches`` and
+    ``ms_deform_attn.backward_launches`` count the kernel launches.
     """
     if impl == "auto":
         impl = "cuda" if value.is_cuda else "torch"
@@ -86,12 +112,11 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence,
     meta = torch.tensor([*(s for hw in shapes for s in hw), *starts],
                         dtype=torch.int32).to(value.device, non_blocking=True)
     L = len(shapes)
-    out = _ext.msda_fwd(
+    return MSDeformAttnFunction.apply(
         value.contiguous(), meta[:2 * L].view(L, 2), meta[2 * L:],
         sampling_locations.float().contiguous(),
         attention_weights.float().contiguous())
-    ms_deform_attn.launches += 1
-    return out
 
 
 ms_deform_attn.launches = 0
+ms_deform_attn.backward_launches = 0

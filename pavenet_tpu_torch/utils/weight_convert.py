@@ -14,8 +14,9 @@ renamed and laid out by fixed rules:
 - free parameters (embeddings) keep their names.
 
 The fused per-frame ``sampling_offsets``/``attention_weights`` Dense layers
-stay one Linear, output order unchanged. Subtrees that exist only after a
-training init (the RealNVP flows and the heatmap branch) are skipped.
+stay one Linear, output order unchanged. The RealNVP flows (``enc_flow``,
+``dec_flow``, ``flow``) convert like any Dense tree; the PETR heatmap
+branch ``fc_hm``, which the port does not have, is skipped.
 """
 from __future__ import annotations
 
@@ -23,8 +24,11 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+import torch.nn as nn
 
-TRAIN_ONLY = frozenset({"enc_flow", "dec_flow", "flow", "fc_hm"})
+TRAIN_ONLY = frozenset({"fc_hm"})
+# subtrees a JAX init makes only in train mode
+FLOWS = ("enc_flow", "dec_flow", "flow")
 FREE_PARAMS = frozenset({"level_embeds", "query_embedding",
                          "refine_query_embedding"})
 STATS = {"mean": "running_mean", "var": "running_var"}
@@ -79,3 +83,17 @@ def jax_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         out[".".join(path[:-1] + (STATS[path[-1]],))] = torch.from_numpy(
             np.ascontiguousarray(leaf, dtype=np.float32))
     return out
+
+
+def load_jax_variables(model: nn.Module, variables: Mapping):
+    """Load a converted JAX tree into ``model``. A serving-only tree (a JAX
+    init with ``train=False``) has no flows: those keys may be missing and
+    keep the model's own init. Any other missing or unexpected key raises.
+    """
+    result = model.load_state_dict(jax_variables_to_state_dict(variables),
+                                   strict=False)
+    missing = [k for k in result.missing_keys
+               if not any(f".{f}." in f".{k}" for f in FLOWS)]
+    if missing or result.unexpected_keys:
+        raise KeyError(f"JAX variables do not fit the model: missing "
+                       f"{missing}, unexpected {result.unexpected_keys}")

@@ -1,11 +1,14 @@
 """The port's msda (``pavenet_tpu_torch/ops/ms_deform_attn.py``) against the
-JAX package's ``ms_deform_attn_xla`` on the same numpy inputs.
+JAX package's ``ms_deform_attn_xla`` on the same numpy inputs, forward and
+gradients.
 
-On the CPU the JAX side runs the XLA gather, the plain reference of the
-Pallas corner-stream kernel; the port runs ``ms_deform_attn_torch``. The
-CUDA kernel has no CPU mode: ``chip_smoke.py`` holds it against the plain
-version on the card.
+On the CPU the JAX side runs the XLA gather and its custom VJP, the plain
+reference of the Pallas corner-stream kernels; the port runs
+``ms_deform_attn_torch`` and autograd through it. The CUDA kernels have no
+CPU mode: ``chip_smoke.py`` holds them against the plain version on the
+card.
 """
+import jax
 import numpy as np
 import pytest
 import torch
@@ -46,6 +49,28 @@ def test_plain_matches_jax(levels, P, D):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("D", [4, 32])
+@pytest.mark.parametrize("P", [4, 15])
+@pytest.mark.parametrize("levels", sorted(LEVELS))
+def test_plain_grads_match_jax(levels, P, D):
+    """Gradients of value, locations and weights (1-row, 1-column and 1x1
+    levels; locations up to 0.1 outside the map) at 1e-5."""
+    shapes = LEVELS[levels]
+    value, locs, w = make_inputs(shapes, P, D, seed=P + D + 1)
+    g = np.random.RandomState(P * D).randn(
+        *value.shape[:1], locs.shape[1], value.shape[2] * D).astype(
+            np.float32)
+    _, vjp = jax.vjp(lambda v, l, a: ms_deform_attn_xla(v, shapes, l, a),
+                     value, locs, w)
+    want = [np.asarray(x) for x in vjp(g)]
+    inputs = [torch.from_numpy(a).requires_grad_() for a in (value, locs, w)]
+    out = ms_deform_attn(inputs[0], shapes, inputs[1], inputs[2])
+    out.backward(torch.from_numpy(g))
+    for name, x, ref in zip(("value", "loc", "attn"), inputs, want):
+        np.testing.assert_allclose(x.grad.numpy(), ref, atol=1e-5, rtol=1e-5,
+                                   err_msg=name)
+
+
 def test_far_out_of_range_is_zero():
     shapes = LEVELS["L4"]
     value, locs, w = make_inputs(shapes, 4, 4)
@@ -57,16 +82,19 @@ def test_far_out_of_range_is_zero():
 
 def test_cuda_impl_raises_on_cpu_and_auto_launches_nothing():
     shapes = LEVELS["L3"]
-    value, locs, w = (torch.from_numpy(a)
+    value, locs, w = (torch.from_numpy(a).requires_grad_()
                       for a in make_inputs(shapes, 4, 4))
-    before = ms_deform_attn.launches
+    before = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
     with pytest.raises(ValueError, match="CUDA"):
         ms_deform_attn(value, shapes, locs, w, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         ms_deform_attn(value, shapes, locs, w, impl="xla")
     out = ms_deform_attn(value, shapes, locs, w, impl="auto")
     assert out.shape == (2, 7, 2 * 4)
-    assert ms_deform_attn.launches == before
+    out.sum().backward()
+    assert value.grad is not None and locs.grad is not None
+    assert (ms_deform_attn.launches,
+            ms_deform_attn.backward_launches) == before
 
 
 def test_shape_mismatch_raises():

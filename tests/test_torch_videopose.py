@@ -24,7 +24,8 @@ from pavenet_tpu.config import Config
 from pavenet_tpu.models.detectors import VideoPoseDetector as JDetector
 from pavenet_tpu_torch.models import (VideoPoseDetector, build_detector,
                                       dummy_clip_batch, pavenet_r50_frames3)
-from pavenet_tpu_torch.utils.weight_convert import jax_variables_to_state_dict
+from pavenet_tpu_torch.utils.weight_convert import (
+    FLOWS, jax_variables_to_state_dict, load_jax_variables)
 
 TINY = dict(num_frames=3, num_keypoints=15, num_query=12, backbone_depth=18,
             embed_dims=64, num_encoder_layers=1, num_decoder_layers=2,
@@ -60,7 +61,7 @@ def jax_side():
 def port_side(jax_side):
     variables, batch, _, _ = jax_side
     model = VideoPoseDetector(**TINY).eval()
-    model.load_state_dict(jax_variables_to_state_dict(variables), strict=True)
+    load_jax_variables(model, variables)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     with torch.no_grad():
         head = model.forward_outputs(tb["img"], tb["img_shape"])
@@ -70,22 +71,36 @@ def port_side(jax_side):
 
 
 def test_converter_consumes_every_leaf(jax_side):
+    """A serving-only tree (JAX init with train=False) has no flows: every
+    leaf converts, the model's keys beyond it are the three flows' only,
+    and it loads; the flows then keep the port's init."""
     variables = jax_side[0]
     n_leaves = len(jax.tree.leaves(variables))
     sd = jax_variables_to_state_dict(variables)
     assert len(sd) == n_leaves
     model = VideoPoseDetector(**TINY)
-    assert set(sd) == set(model.state_dict())
-    # train-only subtrees are skipped by name; anything unknown raises
+    flow_keys = {k for k in model.state_dict()
+                 if k.split(".")[1] in FLOWS}
+    assert len(flow_keys) == 3 * 6 * 2 * 3 * 2   # flows x nets x Dense x w/b
+    assert set(sd) == set(model.state_dict()) - flow_keys
+    before = model.head.flow.s0.Dense_0.weight.detach().clone()
+    load_jax_variables(model, variables)
+    assert torch.equal(model.head.flow.s0.Dense_0.weight, before)
+    # the heatmap branch (not ported) is skipped by name; anything unknown
+    # raises, and so does a missing key outside the flows
     extra = {"params": dict(variables["params"]),
              "batch_stats": variables["batch_stats"]}
     extra["params"]["head"] = dict(extra["params"]["head"],
-                                   enc_flow={"Dense_0": {"kernel": np.ones(
-                                       (2, 2), np.float32)}})
+                                   fc_hm={"kernel": np.ones(
+                                       (2, 2), np.float32)})
     assert set(jax_variables_to_state_dict(extra)) == set(sd)
     extra["params"]["head"]["odd"] = {"embedding": np.ones(3, np.float32)}
     with pytest.raises(KeyError, match="odd/embedding"):
         jax_variables_to_state_dict(extra)
+    del extra["params"]["head"]["odd"]
+    del extra["params"]["head"]["enc_output"]
+    with pytest.raises(KeyError, match="enc_output"):
+        load_jax_variables(model, extra)
 
 
 @pytest.mark.parametrize("key", HEAD_KEYS)
@@ -120,9 +135,21 @@ def test_builder_maps_flagship_config_to_zoo_model():
     assert len(built) > 500
 
 
+def run_without_jax(code):
+    """Run ``code`` in a fresh interpreter at the repo root; return the
+    modules of jax, flax and the JAX package it loaded."""
+    proc = subprocess.run([sys.executable, "-c", textwrap.dedent(code) + (
+        "\nprint(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'jaxlib', 'pavenet_tpu')))\n")], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout.strip().splitlines()[-1]
+
+
 def test_slice_runs_without_jax():
-    """The port's serving slice, run alone, loads neither jax nor flax."""
-    code = textwrap.dedent("""
+    """The port's serving slice, run alone, loads neither jax nor flax nor
+    any module of the JAX package."""
+    assert run_without_jax("""
         import sys
         import numpy as np
         from pavenet_tpu_torch.apis import inference_detector, init_detector
@@ -134,10 +161,23 @@ def test_slice_runs_without_jax():
         out = inference_detector(model, clip, img_scale=(160, 96))
         assert out["det_kpts"].shape == (5, 15, 3), out["det_kpts"].shape
         assert np.isfinite(out["det_kpts"]).all()
-        print(sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "flax")))
-    """)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().splitlines()[-1] == "[]"
+    """) == "[]"
+
+
+def test_train_slice_runs_without_jax():
+    """Two mini-steps (one applied update) of the tiny debug config's train
+    step, run alone, load neither jax nor flax nor the JAX package."""
+    assert run_without_jax("""
+        import sys
+        import numpy as np
+        from pavenet_tpu_torch.apis import init_trainer, train_step
+        from pavenet_tpu_torch.models.zoo import dummy_clip_batch
+        state = init_trainer("configs/videopose/pavenet_tiny_debug.py",
+                             device="cpu", seed=0)
+        rng = np.random.RandomState(0)
+        for _ in range(2):
+            losses = train_step(state, dummy_clip_batch(
+                rng, height=96, width=128, max_gt=state.max_gt, train=True))
+            assert all(np.isfinite(float(v)) for v in losses.values())
+        assert state.updates == 1, state.updates
+    """) == "[]"
