@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's clip-inference path and train step once on one
-CUDA card.
+"""Drive the PyTorch port's serving, train step and encoder distillation
+once on one CUDA card: the flagship (deformable encoder) and its windowed-
+encoder variant.
 
     python3 chip_smoke.py
 
@@ -8,31 +9,47 @@ Phases (one printed line each or more; any failure raises and exits
 non-zero):
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit.
-2. build:  compiles ``csrc/msda_fwd.cu`` and ``csrc/msda_bwd.cu`` with nvcc,
-   in parallel, and prints each build time.
-3. kernel: the msda forward kernel against its plain PyTorch version at the
-   main-path shapes (encoder, pose decoder, serving joint decoder Q=300,
-   train joint decoder Q=450), value in f32 and bf16, plus edge levels
-   (1-row, 1-column, 1x1); times from CUDA events, median of 20.
-4. backward: the msda backward kernel against autograd of the plain version
-   at the encoder, pose decoder and train joint decoder shapes and the edge
+2. build:  compiles every ``csrc/*.cu`` (msda forward and backward, window
+   attention forward and backward) with nvcc, in parallel, and prints each
+   build time.
+3. msda forward kernel against its plain PyTorch version at the main-path
+   shapes (encoder, pose decoder, serving joint decoder Q=300, train joint
+   decoder Q=450), value in f32 and bf16, plus edge levels (1-row, 1-column,
+   1x1); times from CUDA events, median of 20.
+4. msda backward kernel against autograd of the plain version at the
+   encoder, pose decoder and train joint decoder shapes and the edge
    levels, f32 and bf16; backward times of both.
-5. serve:  ``init_detector`` on the flagship config (random weights from a
-   seed) and ``inference_detector`` on 3 synthetic 720x1280 clips (800x1344
-   bucket): shapes, finiteness, exactly 11 forward launches per clip.
-6. parity: the same weights and batch through ``impl="torch"`` and
-   ``impl="cuda"`` with TF32 off; keypoints within 1e-2 px, keep equal.
-7. train:  ``init_trainer`` on the flagship config, 8 mini-steps of
+5. window attention: the forward and backward kernels against the plain
+   version and its autograd at the four flagship level rasters (B=3, C=256,
+   8 heads), unshifted and shifted, with bucket padding and one fully
+   masked window, and at a 1x2 level, f32 and bf16; times of kernel, plain,
+   ``scaled_dot_product_attention`` on the partitioned layout (timed only)
+   and the bound.
+6. flagship serve: ``init_detector`` (random weights from a seed) and
+   ``inference_detector`` on 3 synthetic 720x1280 clips (800x1344 bucket):
+   shapes, finiteness, exactly 11 msda launches per clip; then
+   ``impl="cuda"`` against ``impl="torch"`` with TF32 off (keypoints within
+   1e-2 px, keep equal).
+7. flagship train: ``init_trainer``, 8 mini-steps of
    ``dummy_clip_batch(train=True)`` at 800x1344, B=1, 30 GT slots, which is
-   one applied update (``cumulative_iters=8``): finite losses, exactly 11
-   forward and 11 backward launches per mini-step, frozen parameters
-   unchanged, every other parameter with a gradient changed; ms/step, the
-   host share spent in matching and the peak memory.
-8. train parity: one mini-step's matching, losses and gradient norm with
-   ``impl="cuda"`` and with ``impl="torch"`` (same weights and batch,
-   dropout 0, TF32 off).
+   one applied update: finite losses, exactly 11+11 msda launches per
+   mini-step, frozen parameters unchanged, every other parameter with a
+   gradient changed; ms/step, host matching share, peak memory; then one
+   mini-step cuda against torch on the weights as initialised (same
+   matches, losses within 1e-4, gradient norm within 1e-3).
+8. windowed serve: phase 6 on the windowed config, 24 window-attention
+   (6 layers x 4 levels) and 5 msda launches per clip.
+9. windowed train: phase 7 on the windowed config, 24+24 window-attention
+   and 5+5 msda launches per mini-step.
+10. distill: the flagship teacher and the windowed student
+   (``create_distill_state``), 4 steps at 800x1344, B=1: exactly 6 msda
+   forward and 24+24 window-attention launches per step, finite MSE, every
+   entry outside the encoder bit-identical to the teacher's, the encoder
+   weights changed; then one step cuda against torch (MSE and rel within
+   1e-5, gradient norm within 1e-3).
 
-The last two lines are the kernels' JSON record and the contract line
+Each run sets every launch count to 0 just before it and reads them just
+after. The last two lines are the kernels' JSON record and the contract line
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -46,9 +63,19 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = "configs/videopose/pavenet_r50_frames3_posetrack17.py"
 FLAGSHIP_LEVELS = ((100, 168), (50, 84), (25, 42), (13, 21))  # 800x1344
 EDGE_LEVELS = ((6, 9), (3, 5), (1, 3), (2, 1))
+WINDOWED_CONFIG = ("configs/videopose/"
+                   "pavenet_r50_frames3_posetrack17_windowed.py")
 CLIPS = 3
 CALLS_PER_CLIP = 11   # 6 encoder + 3 pose-decoder + 2 joint-decoder layers
 TRAIN_STEPS = 8       # = cumulative_iters of the flagship config
+# the windowed variant: 6 encoder layers of window attention, one call per
+# pyramid level each (as the JAX layer calls its kernel), so 6 x 4; msda only
+# in the 3 pose-decoder and 2 joint-decoder layers
+WINDOW_CALLS, WINDOWED_MSDA_CALLS = 6 * 4, 5
+DISTILL_STEPS = 4
+WINDOW = (8, 16)
+IMG_SHAPE = (750, 1333)   # a 720x1280 clip resized into the 800x1344 bucket
+EDGE_WINDOW_LEVEL = (1, 2)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 flop/s outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -212,6 +239,148 @@ def check_backward(ext, ms_deform_attn_torch):
     return records
 
 
+def window_cases():
+    """(name, level (Hl, Wl), B, C, heads, shift) of the window-attention
+    calls: the four flagship level rasters unshifted and shifted, and an
+    edge level smaller than one window."""
+    cases = [(f"level{i}", hw, 3, 256, 8, shift)
+             for shift in (False, True)
+             for i, hw in enumerate(FLAGSHIP_LEVELS)]
+    return cases + [("edge", EDGE_WINDOW_LEVEL, 3, 256, 8, False)]
+
+
+def window_inputs(gen, level, B, C, shift, dtype):
+    """Padded rasters q, k, v and the keep mask of one level, as the
+    windowed encoder builds them: bucket padding from IMG_SHAPE, window
+    padding, the half-window roll when ``shift``; plus one fully masked
+    window (batch 0, the first window)."""
+    import torch
+    Hl, Wl = level
+    wh, ww = WINDOW
+    Hp, Wp = -(-Hl // wh) * wh, -(-Wl // ww) * ww
+    rows = torch.arange(Hl, device="cuda") < IMG_SHAPE[0] * Hl / 800
+    cols = torch.arange(Wl, device="cuda") < IMG_SHAPE[1] * Wl / 1344
+    keep = (rows[:, None] & cols[None, :]).float().expand(B, Hl, Wl)
+    if shift:
+        keep = torch.roll(keep, (-(wh // 2), -(ww // 2)), dims=(1, 2))
+    keep = torch.nn.functional.pad(keep, (0, Wp - Wl, 0, Hp - Hl))
+    keep[0, :wh, :ww] = 0.0
+    q, k, v = (torch.randn(B, Hp, Wp, C, device="cuda", generator=gen)
+               .to(dtype) for _ in range(3))
+    return q, k, v, keep.contiguous()
+
+
+def window_bound(backward, q):
+    """Least time of one call on an H100: q, k, v (and g) read once and the
+    output(s) written once over the HBM rate, against the score and value
+    products (two per window and head forward, five backward) over the f32
+    rate. Every window of the padded raster counts: the function is
+    defined on it."""
+    B, Hp, Wp, C = q.shape
+    S = WINDOW[0] * WINDOW[1]
+    rasters = 7 if backward else 4
+    nbytes = rasters * q.numel() * q.element_size() + B * Hp * Wp * 4
+    windows = B * (Hp // WINDOW[0]) * (Wp // WINDOW[1])
+    flops = windows * (5 if backward else 2) * 2 * S * S * C
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_inputs(q, k, v, keep, heads):
+    """The partitioned (nW, heads, S, D) layout and an additive float mask
+    (0, or -1e9 at masked keys) for the library yardstick; made outside the
+    timed window."""
+    import torch
+    from pavenet_tpu_torch.models.layers.windowed import window_partition
+    B, Hp, Wp, C = q.shape
+
+    def part(x):
+        w = window_partition(x.reshape(B, Hp * Wp, -1), Hp, Wp, *WINDOW)
+        return w.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
+
+    keep_w = window_partition(keep.reshape(B, Hp * Wp, 1), Hp, Wp,
+                              *WINDOW)[..., 0]
+    mask = torch.zeros_like(keep_w, dtype=q.dtype).masked_fill(
+        keep_w < 0.5, -1e9)[:, None, None, :]
+    return [part(x).requires_grad_() for x in (q, k, v)], mask
+
+
+def check_window(ext):
+    """Window-attention forward and backward kernels against the plain
+    version (forward) and autograd of it (backward), f32 and bf16; times of
+    kernel, plain, the SDPA yardstick and the bound. Returns (forward
+    records, backward records)."""
+    import torch
+    import torch.nn.functional as F
+    from pavenet_tpu_torch.ops.window_attn import window_attention_torch
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    fwd, bwd = [], []
+    for name, level, B, C, heads, shift in window_cases():
+        for dtype, fwd_tol, bwd_tol in ((torch.float32, 1e-5, 1e-4),
+                                        (torch.bfloat16, 2e-2, 2e-2)):
+            q, k, v, keep = window_inputs(gen, level, B, C, shift, dtype)
+            g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+            base = dict(case=name, level=list(level),
+                        raster=list(q.shape[1:3]), shift=shift,
+                        dtype=str(dtype).replace("torch.", ""), B=B, C=C,
+                        heads=heads)
+            got = ext.window_attn_fwd(q, k, v, keep, heads).float()
+            torch.cuda.synchronize()
+            ins = [x.float().requires_grad_() for x in (q, k, v)]
+            want = window_attention_torch(*ins, keep, heads)
+            err = (got - want).abs().max().item()
+            tol = fwd_tol * want.abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"window fwd {name} {dtype}: max abs err "
+                                     f"{err} > {tol}")
+            sq, mask = sdpa_inputs(q, k, v, keep, heads)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(*sq, attn_mask=mask)
+
+            lib_out = sdpa()
+            lg = torch.randn(lib_out.shape, device="cuda",
+                             generator=gen).to(dtype)
+            bound_ms, bound_by = window_bound(False, q)
+            rec = dict(base, max_abs_err=err, tol=tol,
+                       ms=cuda_ms(lambda: ext.window_attn_fwd(q, k, v, keep,
+                                                              heads)),
+                       plain_ms=cuda_ms(lambda: window_attention_torch(
+                           q, k, v, keep, heads)),
+                       library_ms=cuda_ms(sdpa),
+                       library_fwd_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+                           sdpa(), sq, lg)),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            print("window fwd", json.dumps(rec), flush=True)
+            fwd.append(rec)
+
+            got = ext.window_attn_bwd(q, k, v, keep, g, heads)
+            torch.cuda.synchronize()
+            want = torch.autograd.grad(want, ins, g.float(), retain_graph=True)
+            errs = {}
+            for key, a, b in zip(("dq", "dk", "dv"), got, want):
+                errs[key] = (a.float() - b).abs().max().item()
+                tol = bwd_tol * b.abs().max().item()
+                if not errs[key] <= tol:
+                    raise AssertionError(f"window bwd {name} {dtype} {key}: "
+                                         f"max abs err {errs[key]} > {tol}")
+            out = window_attention_torch(*ins, keep, heads)
+            bound_ms, bound_by = window_bound(True, q)
+            rec = dict(base, max_abs_err=max(errs.values()), errs=errs,
+                       rel_tol=bwd_tol,
+                       ms=cuda_ms(lambda: ext.window_attn_bwd(q, k, v, keep, g,
+                                                              heads)),
+                       plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                           out, ins, g.float(), retain_graph=True)),
+                       library_ms=cuda_ms(lambda: torch.autograd.grad(
+                           lib_out, sq, lg, retain_graph=True)),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            print("window bwd", json.dumps(rec), flush=True)
+            bwd.append(rec)
+    return fwd, bwd
+
+
 def synthetic_clips(seed=0):
     import numpy as np
     rng = np.random.RandomState(seed)
@@ -229,45 +398,72 @@ def check_detections(out, M=20, K=15):
             raise AssertionError(f"{k} has non-finite values")
 
 
-def serve(smi):
-    """Phases 5 and 6; returns the serving run's forward launches."""
+def reset_launches():
+    from pavenet_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from pavenet_tpu_torch.ops.window_attn import window_attention
+    for fn in (ms_deform_attn, window_attention):
+        fn.launches = fn.backward_launches = 0
+
+
+def read_launches():
+    """Kernel launches since ``reset_launches``, by kernel."""
+    from pavenet_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from pavenet_tpu_torch.ops.window_attn import window_attention
+    return {"msda_fwd": ms_deform_attn.launches,
+            "msda_bwd": ms_deform_attn.backward_launches,
+            "window_attn_fwd": window_attention.launches,
+            "window_attn_bwd": window_attention.backward_launches}
+
+
+def check_launches(what, got, per_step, steps):
+    want = {k: per_step.get(k, 0) * steps for k in got}
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected "
+                             f"{want}")
+
+
+def tf32(on):
+    import torch
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def serve(smi, config, per_clip):
+    """Serving and its cuda-vs-torch parity on ``config``; returns the
+    serving run's launches."""
     import torch
     from pavenet_tpu_torch.apis import inference_detector, init_detector
     from pavenet_tpu_torch.apis.inference import host_batch
-    from pavenet_tpu_torch.ops.ms_deform_attn import ms_deform_attn
 
-    model = init_detector(str(ROOT / CONFIG), device="cuda", seed=0)
+    model = init_detector(str(ROOT / config), device="cuda", seed=0)
     clips = synthetic_clips()
     check_detections(inference_detector(model, clips[0]))   # warm-up
     torch.cuda.synchronize()
-    ms_deform_attn.launches = ms_deform_attn.backward_launches = 0
+    reset_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     outs = [inference_detector(model, clip) for clip in clips[1:]]
     end.record()
     torch.cuda.synchronize()
-    launches = ms_deform_attn.launches
-    bwd_launches = ms_deform_attn.backward_launches
+    launches = read_launches()
     clip_ms = start.elapsed_time(end) / CLIPS
     for out in outs:
         check_detections(out)
-    if (launches, bwd_launches) != (CALLS_PER_CLIP * CLIPS, 0):
-        raise AssertionError(f"{launches} msda forward and {bwd_launches} "
-                             f"backward launches for {CLIPS} clips, expected "
-                             f"{CALLS_PER_CLIP * CLIPS} and 0")
+    check_launches(f"serve {config}, {CLIPS} clips", launches, per_clip,
+                   CLIPS)
     batch = {k: torch.from_numpy(v).cuda()
              for k, v in host_batch(clips[1], 3, (1333, 800)).items()}
     model_ms = cuda_ms(lambda: model.forward_test(batch), reps=5, warmup=1)
-    print(f"serve: {CLIPS} clips at {tuple(batch['img'].shape[2:4])}, f32, "
-          f"{launches} msda launches; {clip_ms:.2f} ms/clip end to end "
-          f"(host pipeline included), {model_ms:.2f} ms/clip forward_test "
-          f"| {smi}", flush=True)
+    print(f"serve {config}: {CLIPS} clips at "
+          f"{tuple(batch['img'].shape[2:4])}, f32, launches "
+          f"{json.dumps(launches)}; {clip_ms:.2f} ms/clip end to end (host "
+          f"pipeline included), {model_ms:.2f} ms/clip forward_test | {smi}",
+          flush=True)
 
-    # full-model parity: plain msda vs the kernel, TF32 off
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    plain = init_detector(str(ROOT / CONFIG), device="cuda", impl="torch")
+    # full-model parity: plain kernels' versions vs the kernels, TF32 off
+    tf32(False)
+    plain = init_detector(str(ROOT / config), device="cuda", impl="torch")
     plain.load_state_dict(model.state_dict())
     with torch.inference_mode():
         got = model.forward_test(batch)
@@ -278,23 +474,24 @@ def serve(smi):
         raise AssertionError(f"cuda vs torch model: det_kpts max err "
                              f"{kpt_err} px, keep equal "
                              f"{torch.equal(got['keep'], want['keep'])}")
-    print(f"parity: impl=cuda vs impl=torch on the full model, TF32 off: "
-          f"det_kpts max abs err {kpt_err:.3e} px, keep equal", flush=True)
-    torch.backends.cudnn.allow_tf32 = True
+    print(f"parity {config}: impl=cuda vs impl=torch on the full model, TF32 "
+          f"off: det_kpts max abs err {kpt_err:.3e} px, keep equal",
+          flush=True)
+    tf32(True)
     return launches
 
 
-def train(smi):
-    """Phase 7; returns the trainer state and the train run's launches."""
+def train(smi, config, per_step):
+    """``TRAIN_STEPS`` mini-steps (one applied update) on ``config``;
+    returns the run's launches."""
     import numpy as np
     import torch
     from pavenet_tpu_torch.apis import init_trainer, train_step
     from pavenet_tpu_torch.apis.train import _param_label
     from pavenet_tpu_torch.core.assigner import hungarian_assign
     from pavenet_tpu_torch.models.zoo import dummy_clip_batch
-    from pavenet_tpu_torch.ops.ms_deform_attn import ms_deform_attn
 
-    state = init_trainer(str(ROOT / CONFIG), device="cuda", seed=0)
+    state = init_trainer(str(ROOT / config), device="cuda", seed=0)
     if state.accumulate_steps != TRAIN_STEPS:
         raise AssertionError(f"cumulative_iters {state.accumulate_steps}")
     model = state.model
@@ -304,7 +501,7 @@ def train(smi):
                for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms_deform_attn.launches = ms_deform_attn.backward_launches = 0
+    reset_launches()
     hungarian_assign.seconds = 0.0
     step_ms, wall_s, grads_seen = [], [], None
     for i, batch in enumerate(batches):
@@ -330,14 +527,11 @@ def train(smi):
                if not torch.isfinite(v)}
         if bad:
             raise AssertionError(f"non-finite losses at step {i}: {bad}")
-    launches = (ms_deform_attn.launches, ms_deform_attn.backward_launches)
+    launches = read_launches()
     match_s = hungarian_assign.seconds
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = (CALLS_PER_CLIP * TRAIN_STEPS,) * 2
-    if launches != expected:
-        raise AssertionError(f"{launches} msda (forward, backward) launches "
-                             f"in {TRAIN_STEPS} mini-steps, expected "
-                             f"{expected}")
+    check_launches(f"train {config}, {TRAIN_STEPS} mini-steps", launches,
+                   per_step, TRAIN_STEPS)
     if (state.updates, state.mini_step) != (1, 0):
         raise AssertionError(f"{state.updates} updates, mini-step "
                              f"{state.mini_step}: expected one update")
@@ -354,13 +548,12 @@ def train(smi):
                              f"parameters with a gradient unchanged: {stuck}")
     n_frozen = sum(_param_label(n, model.frozen_stages) == "frozen"
                    for n in before)
-    print("train losses (last mini-step): "
+    print(f"train {config} losses (last mini-step): "
           + json.dumps({k: round(v.item(), 5) for k, v in losses.items()}),
           flush=True)
-    print(f"train: {TRAIN_STEPS} mini-steps at 800x1344, B=1, f32, "
-          f"{state.max_gt} GT slots, one applied update; msda launches "
-          f"{launches[0]} forward, {launches[1]} backward "
-          f"({CALLS_PER_CLIP}+{CALLS_PER_CLIP} per mini-step); "
+    print(f"train {config}: {TRAIN_STEPS} mini-steps at 800x1344, B=1, f32, "
+          f"{state.max_gt} GT slots, one applied update; launches "
+          f"{json.dumps(launches)}; "
           f"{statistics.median(step_ms[1:]):.2f} ms/step (median of steps "
           f"2-{TRAIN_STEPS}, CUDA events; {min(step_ms[1:]):.2f}-"
           f"{max(step_ms[1:]):.2f}); matching on the host "
@@ -370,31 +563,31 @@ def train(smi):
           f"all {len(grads_seen)} of {len(before) - n_frozen} trained tensors "
           f"with a clipped gradient above 1e-5 changed | {smi}",
           flush=True)
-    return state, launches
+    return launches
 
 
-def train_parity(state):
-    """Phase 8: impl=cuda vs impl=torch on one mini-step, dropout 0 (eval
-    mode), TF32 off."""
+def train_parity(config, max_gt=30):
+    """impl=cuda vs impl=torch on one mini-step of the model as initialised
+    from seed 0 (the trained weights depend on the order of the msda
+    backward's atomics, so a run would compare other weights each time),
+    dropout 0 (eval mode), TF32 off."""
     import numpy as np
     import torch
     from pavenet_tpu_torch.apis.inference import build_model
     from pavenet_tpu_torch.apis.train import to_device
     from pavenet_tpu_torch.models.zoo import dummy_clip_batch
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cuda_model = state.model.eval()
-    plain = build_model(str(ROOT / CONFIG), impl="torch").cuda().eval()
-    plain.load_state_dict(cuda_model.state_dict())
+    tf32(False)
+    cuda_model = build_model(str(ROOT / config), impl="cuda").cuda().eval()
+    plain = build_model(str(ROOT / config), impl="torch").cuda().eval()
     batch = to_device(dummy_clip_batch(np.random.RandomState(1),
-                                       max_gt=state.max_gt, train=True),
-                      "cuda")
-    results = []
+                                       max_gt=max_gt, train=True), "cuda")
+    results, outs = [], []
     for model in (cuda_model, plain):
         with torch.no_grad():
-            targets = model.match(model.forward_outputs(
-                batch["img"], batch["img_shape"]), batch)
+            outs.append(model.forward_outputs(batch["img"],
+                                              batch["img_shape"]))
+            targets = model.match(outs[-1], batch)
         model.zero_grad(set_to_none=True)
         losses = model.forward_train(batch)
         losses["loss"].backward()
@@ -408,29 +601,140 @@ def train_parity(state):
     if not all(torch.equal(a, b) for a, b in zip(idx_c, idx_t)):
         raise AssertionError("cuda and torch train steps matched different "
                              "queries")
+    # where the two outputs part: the encoder memory, the proposal scores
+    # (before top-k), the top-k proposals (init_reference) and the last
+    # decoder layer's scores, as max abs error over max abs value
+    parts = {k: ((outs[0][k] - outs[1][k]).abs().max()
+                 / outs[1][k].abs().max()).item()
+             for k in ("memory", "enc_cls_scores", "init_reference",
+                       "all_cls_scores")}
     rel = {k: abs(loss_c[k] - loss_t[k]) / abs(loss_t[k]) for k in loss_t}
     bad = {k: r for k, r in rel.items() if not r <= 1e-4}
     norm_rel = abs(norm_c - norm_t) / norm_t
     if bad or not norm_rel <= 1e-3:
         raise AssertionError(f"cuda vs torch train step: loss rel errors "
-                             f"{bad}, grad norm {norm_c} vs {norm_t}")
-    print(f"train parity: impl=cuda vs impl=torch, one mini-step, dropout 0, "
-          f"TF32 off: matched queries equal in {len(idx_c)} sets, max loss "
-          f"rel err {max(rel.values()):.3e}, grad norm {norm_c:.6g} vs "
-          f"{norm_t:.6g} (rel {norm_rel:.3e})", flush=True)
-    torch.backends.cudnn.allow_tf32 = True
+                             f"{rel}, grad norm {norm_c} vs {norm_t}; "
+                             f"outputs {parts}")
+    print(f"train parity {config}: impl=cuda vs impl=torch, one mini-step, "
+          f"dropout 0, TF32 off: matched queries equal in {len(idx_c)} sets, "
+          f"max loss rel err {max(rel.values()):.3e}, grad norm "
+          f"{norm_c:.6g} vs {norm_t:.6g} (rel {norm_rel:.3e}); outputs "
+          f"{json.dumps(parts)}", flush=True)
+    tf32(True)
+
+
+def distill(smi):
+    """Encoder distillation: the flagship deformable teacher and the
+    windowed student, ``DISTILL_STEPS`` steps at 800x1344, B=1; then one
+    cuda-vs-torch step. Returns the run's launches."""
+    import numpy as np
+    import torch
+    from pavenet_tpu_torch.apis import create_distill_state, distill_step
+    from pavenet_tpu_torch.apis.inference import build_model
+    from pavenet_tpu_torch.models.zoo import dummy_clip_batch
+
+    teacher = build_model(str(ROOT / CONFIG), seed=0).cuda()
+    state = create_distill_state(str(ROOT / WINDOWED_CONFIG), teacher,
+                                 seed=1)
+    student = state.student
+    before = {k: v.clone() for k, v in student.state_dict().items()}
+    rng = np.random.RandomState(2)
+    batches = [dummy_clip_batch(rng) for _ in range(DISTILL_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms, mse = [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logs = distill_step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        mse.append(logs["distill_mse"].item())
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_launches(f"distill, {DISTILL_STEPS} steps", launches,
+                   {"msda_fwd": 6, "window_attn_fwd": WINDOW_CALLS,
+                    "window_attn_bwd": WINDOW_CALLS}, DISTILL_STEPS)
+    if not all(np.isfinite(mse)):
+        raise AssertionError(f"non-finite distill_mse {mse}")
+    t_sd = teacher.state_dict()
+    copied_moved, enc_moved, enc_stuck = [], 0, []
+    for k, v in student.state_dict().items():
+        if k.startswith("head.encoder_layer"):
+            moved = not torch.equal(v, before[k])
+            enc_moved += moved
+            if not moved and k.endswith("weight"):
+                enc_stuck.append(k)
+        elif not torch.equal(v, t_sd[k]):
+            copied_moved.append(k)
+    if copied_moved or enc_stuck:
+        raise AssertionError(f"entries copied from the teacher changed: "
+                             f"{copied_moved}; encoder weights unchanged: "
+                             f"{enc_stuck}")
+    n_enc = sum(k.startswith("head.encoder_layer") for k in before)
+    print(f"distill: flagship deformable teacher -> windowed student, "
+          f"{DISTILL_STEPS} steps at 800x1344, B=1, f32; launches "
+          f"{json.dumps(launches)}; distill_mse "
+          f"{', '.join(f'{m:.5g}' for m in mse)}; "
+          f"{statistics.median(step_ms[1:]):.2f} ms/step (median of steps "
+          f"2-{DISTILL_STEPS}, CUDA events; {min(step_ms[1:]):.2f}-"
+          f"{max(step_ms[1:]):.2f}); peak memory {peak_gb:.2f} GiB; "
+          f"{len(before) - n_enc} teacher entries bit-identical, "
+          f"{enc_moved} of {n_enc} encoder entries changed (every weight) "
+          f"| {smi}", flush=True)
+
+    # one step through the kernels and through the plain versions
+    tf32(False)
+    batch = dummy_clip_batch(np.random.RandomState(3))
+    results = []
+    for impl in ("cuda", "torch"):
+        t_model = build_model(str(ROOT / CONFIG), impl=impl).cuda()
+        t_model.load_state_dict(t_sd)
+        s_model = build_model(str(ROOT / WINDOWED_CONFIG), impl=impl).cuda()
+        s_model.load_state_dict(student.state_dict())
+        logs = distill_step(create_distill_state(s_model, t_model), batch)
+        results.append({k: v.item() for k, v in logs.items()})
+    rel = {k: abs(results[0][k] - results[1][k]) / abs(results[1][k])
+           for k in results[1]}
+    if not (rel["distill_mse"] <= 1e-5 and rel["distill_rel"] <= 1e-5
+            and rel["grad_norm"] <= 1e-3):
+        raise AssertionError(f"cuda vs torch distill step: {results}")
+    print(f"distill parity: impl=cuda vs impl=torch, one step, TF32 off: "
+          f"{json.dumps(results[0])} vs {json.dumps(results[1])}; relative "
+          f"errors {json.dumps(rel)}", flush=True)
+    tf32(True)
+    return launches
 
 
 def kernel_record(name, records, launches, replaces, **extra):
-    enc = next(r for r in records
-               if r["case"] == "encoder" and r["dtype"] == "float32")
+    """The kernel's line: ``ms``, ``plain_ms``, ``library_ms`` and
+    ``bound_ms`` of one main-path call (msda: the encoder call; window
+    attention: one encoder layer, the four flagship levels unshifted), f32;
+    ``max_abs_err`` the largest of every checked shape and dtype."""
+    f32 = [r for r in records if r["dtype"] == "float32"]
+    if name.startswith("msda"):
+        f32 = [r for r in f32 if r["case"] == "encoder"]
+    else:
+        f32 = [r for r in f32 if r["case"].startswith("level")
+               and not r["shift"]]
+
+    def total(key):
+        vals = [r.get(key) for r in f32]
+        return None if None in vals else sum(vals)
+
+    t_bytes = sum(r["bound_ms"] for r in f32 if r["bound_by"] == "bytes")
     return {"name": name, "route": "cuda",
             "source": f"pavenet_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
-            "max_abs_err": enc["max_abs_err"], "ms": enc["ms"],
-            "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
-            "bound_by": enc["bound_by"], "library_ms": None, **extra,
-            "per_shape": records}
+            "max_abs_err": max(r["max_abs_err"] for r in records),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": ("bytes" if t_bytes >= total("bound_ms") / 2
+                         else "operations"),
+            "library_ms": total("library_ms"), **extra}
 
 
 def main():
@@ -453,27 +757,55 @@ def main():
     print(f"device: {kind} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    # 2. build (both kernels at once)
+    # 2. build (every kernel at once)
     for name, seconds in _ext.build_all().items():
         print(f"build: csrc/{name}.cu in {seconds:.2f} s", flush=True)
 
-    # 3-4. kernels vs plain
+    # 3-5. kernels vs plain
     fwd = check_forward(ms_deform_attn, ms_deform_attn_torch)
     bwd = check_backward(_ext, ms_deform_attn_torch)
+    win_fwd, win_bwd = check_window(_ext)
 
-    # 5-6. serve
-    serve_launches = serve(smi)
+    # 6-7. flagship (deformable) serve and train
+    flagship = {"msda_fwd": CALLS_PER_CLIP, "msda_bwd": CALLS_PER_CLIP}
+    serve_launches = serve(smi, CONFIG, {"msda_fwd": CALLS_PER_CLIP})
+    train_launches = train(smi, CONFIG, flagship)
+    train_parity(CONFIG)
+    torch.cuda.empty_cache()
 
-    # 7-8. train
-    state, (fwd_launches, bwd_launches) = train(smi)
-    train_parity(state)
+    # 8-10. the windowed variant: serve, train, distill
+    windowed = {"msda_fwd": WINDOWED_MSDA_CALLS,
+                "window_attn_fwd": WINDOW_CALLS}
+    w_serve = serve(smi, WINDOWED_CONFIG, windowed)
+    w_train = train(smi, WINDOWED_CONFIG, dict(
+        windowed, msda_bwd=WINDOWED_MSDA_CALLS,
+        window_attn_bwd=WINDOW_CALLS))
+    train_parity(WINDOWED_CONFIG)
+    torch.cuda.empty_cache()
+    d_launches = distill(smi)
+
+    def runs(name):
+        return {"flagship_serve": serve_launches[name],
+                "flagship_train": train_launches[name],
+                "windowed_serve": w_serve[name],
+                "windowed_train": w_train[name],
+                "distill": d_launches[name]}
 
     print(json.dumps({"kernels": [
-        kernel_record("msda_fwd", fwd, fwd_launches,
-                      "pavenet_tpu/ops/pallas/msda_cs.py:398",
-                      serve_launches=serve_launches),
-        kernel_record("msda_bwd", bwd, bwd_launches,
-                      "pavenet_tpu/ops/pallas/msda_cs.py:662"),
+        kernel_record("msda_fwd", fwd, train_launches["msda_fwd"],
+                      "pavenet_tpu/ops/pallas/msda_cs.py:398, "
+                      "pavenet_tpu/ops/pallas/msda.py:334",
+                      launches_by_run=runs("msda_fwd")),
+        kernel_record("msda_bwd", bwd, train_launches["msda_bwd"],
+                      "pavenet_tpu/ops/pallas/msda_cs.py:662, "
+                      "pavenet_tpu/ops/pallas/msda.py:490",
+                      launches_by_run=runs("msda_bwd")),
+        kernel_record("window_attn_fwd", win_fwd, w_train["window_attn_fwd"],
+                      "pavenet_tpu/ops/pallas/window_attn.py:173",
+                      launches_by_run=runs("window_attn_fwd")),
+        kernel_record("window_attn_bwd", win_bwd, w_train["window_attn_bwd"],
+                      "pavenet_tpu/ops/pallas/window_attn.py:193",
+                      launches_by_run=runs("window_attn_bwd")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -29,10 +29,11 @@ def _loss_weight(head, key, default):
 def build_detector(cfg: dict, impl: str = "auto") -> VideoPoseDetector:
     """Build the video pose detector from a reference-style model config.
 
-    Raises on what the port does not have yet: another detector, backbone
-    or head, trainable BatchNorm, a frozen backbone and neck (VideoPoseV2),
-    the windowed encoder, a keypoint loss other than RLE, and OKS or
-    heatmap losses with a weight above 0.
+    ``encoder.mode`` is 'deformable' (the default) or 'windowed'. Raises on
+    what the port does not have yet: another detector, backbone or head,
+    trainable BatchNorm, a frozen backbone and neck (VideoPoseV2), another
+    encoder mode, a keypoint loss other than RLE, and OKS or heatmap losses
+    with a weight above 0.
     """
     det_type = _type_name(cfg)
     if det_type != "VideoPoseV1":
@@ -49,8 +50,9 @@ def build_detector(cfg: dict, impl: str = "auto") -> VideoPoseDetector:
         raise KeyError(f"unsupported head type {head_type!r}")
     transformer = head.get("transformer", {})
     encoder = transformer.get("encoder", {})
-    if encoder.get("mode", "deformable") != "deformable":
-        raise KeyError("the windowed encoder is not ported")
+    encoder_mode = encoder.get("mode", "deformable")
+    if encoder_mode not in ("deformable", "windowed"):
+        raise KeyError(f"unsupported encoder mode {encoder_mode!r}")
     if _type_name(head.get("loss_kpt"), "RLELoss") != "RLELoss":
         raise KeyError(f"unsupported loss_kpt {head['loss_kpt']['type']!r} "
                        "(the port has RLELoss)")
@@ -90,4 +92,4 @@ def build_detector(cfg: dict, impl: str = "auto") -> VideoPoseDetector:
         cls_cost_weight=cost_weight("cls_cost", 2.0),
         kpt_cost_weight=cost_weight("kpt_cost", 70.0),
         oks_cost_weight=cost_weight("oks_cost", 7.0),
-        impl=impl)
+        encoder_mode=encoder_mode, impl=impl)

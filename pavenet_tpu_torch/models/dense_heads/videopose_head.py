@@ -1,7 +1,7 @@
 """PAVE-Net video pose head (as ``pavenet_tpu/models/dense_heads/
-videopose_head.py``): deformable encoder, two-stage top-k proposals,
-per-frame pose decoder, the joint (refine) decoder and the three RealNVP
-flows of the RLE losses.
+videopose_head.py``): deformable or windowed encoder, two-stage top-k
+proposals, per-frame pose decoder, the joint (refine) decoder and the three
+RealNVP flows of the RLE losses.
 
 Batch-first with an explicit frame axis ``(B, T, ...)``. The PETR heatmap
 branch (weight 0 in every video config) is not ported.
@@ -22,6 +22,7 @@ from ..attention.deformable import (
 from ..flows.realnvp import RealNVP
 from ..layers.positional_encoding import sine_positional_encoding
 from ..layers.transformer import FFN, MLP, MultiheadAttention
+from ..layers.windowed import WindowedEncoderLayer
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -91,8 +92,11 @@ class VideoPoseHead(nn.Module):
                  num_decoder_layers: int = 3, num_refine_layers: int = 2,
                  encoder_num_points: int = 4, refine_num_points: int = 4,
                  feedforward_channels: int = 1024, num_kpt_fcs: int = 2,
-                 dropout: float = 0.1, impl: str = "auto"):
+                 dropout: float = 0.1, encoder_mode: str = "deformable",
+                 impl: str = "auto"):
         super().__init__()
+        if encoder_mode not in ("deformable", "windowed"):
+            raise ValueError(f"unknown encoder_mode {encoder_mode!r}")
         C, K, T = embed_dims, num_keypoints, num_frames
         self.num_frames, self.num_keypoints = T, K
         self.num_query, self.embed_dims = num_query, C
@@ -103,9 +107,14 @@ class VideoPoseHead(nn.Module):
 
         add = self.add_module
         for i in range(num_encoder_layers):
-            add(f"encoder_layer{i}", EncoderLayer(
-                C, num_heads, num_levels, encoder_num_points,
-                feedforward_channels, dropout, impl))
+            if encoder_mode == "windowed":   # odd layers shift the windows
+                add(f"encoder_layer{i}", WindowedEncoderLayer(
+                    C, num_heads, feedforward_channels, dropout,
+                    shift=bool(i % 2), impl=impl))
+            else:
+                add(f"encoder_layer{i}", EncoderLayer(
+                    C, num_heads, num_levels, encoder_num_points,
+                    feedforward_channels, dropout, impl))
         self.num_encoder_layers = num_encoder_layers
         self.level_embeds = nn.Parameter(torch.empty(num_levels, C))
         self.enc_output = nn.Linear(C, C)
@@ -202,15 +211,16 @@ class VideoPoseHead(nn.Module):
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    def forward(self, mlvl_feats: Sequence[torch.Tensor],
-                mlvl_masks: Sequence[torch.Tensor], valid_ratios):
-        """Encoder -> two-stage proposals -> pose decoder.
+    def forward_encoder(self, mlvl_feats: Sequence[torch.Tensor],
+                        mlvl_masks: Sequence[torch.Tensor], valid_ratios):
+        """The encoder alone: ``memory`` (B, T, N, C), ``mask_flatten``
+        (B, N) (True = pad) and ``spatial_shapes``.
 
         mlvl_feats: list of (B, T, H_l, W_l, C); mlvl_masks: list of
         (B, H_l, W_l) bool, True = pad; valid_ratios (B, L, 2) xy.
         """
         B, T = mlvl_feats[0].shape[:2]
-        C, K, NQ = self.embed_dims, self.num_keypoints, self.num_query
+        C = self.embed_dims
         spatial_shapes: Shapes = tuple(
             (int(f.shape[2]), int(f.shape[3])) for f in mlvl_feats)
 
@@ -238,7 +248,18 @@ class VideoPoseHead(nn.Module):
         for i in range(self.num_encoder_layers):
             x = self._m("encoder_layer{}", i)(x, pos_bt, ref_bt,
                                                spatial_shapes, mask_bt)
-        memory = x.view(B, T, N, C)
+        return dict(memory=x.view(B, T, N, C), mask_flatten=mask,
+                    spatial_shapes=spatial_shapes)
+
+    def forward(self, mlvl_feats: Sequence[torch.Tensor],
+                mlvl_masks: Sequence[torch.Tensor], valid_ratios):
+        """Encoder -> two-stage proposals -> pose decoder (arguments as
+        ``forward_encoder``)."""
+        enc = self.forward_encoder(mlvl_feats, mlvl_masks, valid_ratios)
+        memory, mask = enc["memory"], enc["mask_flatten"]
+        spatial_shapes: Shapes = enc["spatial_shapes"]
+        B, T, N, C = memory.shape
+        K, NQ = self.num_keypoints, self.num_query
         now = T // 2
         now_memory = memory[:, now]
 

@@ -52,7 +52,8 @@ class VideoPoseDetector(nn.Module):
                  loss_kpt_rpn_weight: float = 1.0,
                  loss_kpt_refine_weight: float = 1.0,
                  cls_cost_weight: float = 2.0, kpt_cost_weight: float = 70.0,
-                 oks_cost_weight: float = 7.0, impl: str = "auto"):
+                 oks_cost_weight: float = 7.0,
+                 encoder_mode: str = "deformable", impl: str = "auto"):
         super().__init__()
         self.num_frames, self.num_keypoints = num_frames, num_keypoints
         self.num_classes = num_classes
@@ -75,7 +76,7 @@ class VideoPoseDetector(nn.Module):
             num_decoder_layers=num_decoder_layers,
             num_refine_layers=num_refine_layers,
             feedforward_channels=feedforward_channels, dropout=dropout,
-            impl=impl)
+            encoder_mode=encoder_mode, impl=impl)
         self.register_buffer("oks_sigmas",
                              torch.tensor(OKS_SIGMAS[num_keypoints]),
                              persistent=False)
@@ -126,14 +127,24 @@ class VideoPoseDetector(nn.Module):
                                        row_valid.sum(-1) / h_l], -1))
         return masks, torch.stack(ratios, 1).float()
 
-    def forward_outputs(self, img, img_shape):
+    def _head_inputs(self, img, img_shape):
         feats = self.extract_feats(img)
         level_shapes = tuple((f.shape[2], f.shape[3]) for f in feats)
         mlvl_masks, valid_ratios = self.level_masks(
             img_shape, img.shape[2:4], level_shapes)
+        return feats, mlvl_masks, valid_ratios
+
+    def forward_outputs(self, img, img_shape):
+        feats, mlvl_masks, valid_ratios = self._head_inputs(img, img_shape)
         outs = self.head(feats, mlvl_masks, valid_ratios)
         outs["valid_ratios"] = valid_ratios
         return outs
+
+    def forward_memory(self, img, img_shape):
+        """Backbone, neck and encoder only: ``memory`` (B, T, N, C),
+        ``mask_flatten`` (B, N) and ``spatial_shapes`` (the encoder
+        distillation's inputs; the decoders do not run)."""
+        return self.head.forward_encoder(*self._head_inputs(img, img_shape))
 
     # ------------------------------------------------------------------
     # training

@@ -1,0 +1,120 @@
+"""Windowed encoder layer (as ``pavenet_tpu/models/layers/windowed.py``):
+dense attention inside non-overlapping (8, 16)-token windows of each pyramid
+level, in place of the deformable encoder layer (``encoder_mode=
+'windowed'``).
+
+As in the JAX package:
+
+- q and k are projected from ``x + pos``, v from ``x``; v is zeroed at
+  padded keys, so a fully padded window attends to zeros;
+- odd layers (``shift=True``) roll the level raster by half a window,
+  ``(-(wh // 2), -(ww // 2))``, before padding it to window multiples, and
+  roll the cropped output back. The roll wraps around the image edges with
+  no Swin region mask: keys that wrap in are masked only where they are
+  padding;
+- dropout after the output projection, post-norm, then the FFN and a
+  second norm.
+
+Attention goes through ``ops/window_attn.py`` on the raster, for every
+``impl`` (the plain version partitions into windows inside it).
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ...ops.window_attn import window_attention
+from .transformer import FFN, Dropout
+
+WINDOW = (8, 16)   # (wh, ww): 128 tokens
+
+
+def _padded(Hl: int, Wl: int, wh: int, ww: int) -> Tuple[int, int]:
+    return -(-Hl // wh) * wh, -(-Wl // ww) * ww
+
+
+def window_partition(x, Hl, Wl, wh=WINDOW[0], ww=WINDOW[1], shift=False):
+    """(B, Hl*Wl, ...) raster -> (B * nW, wh*ww, ...) windows; ``shift``
+    rolls the raster by half a window first."""
+    B, trail = x.shape[0], x.shape[2:]
+    x = x.reshape(B, Hl, Wl, *trail)
+    if shift:
+        x = torch.roll(x, (-(wh // 2), -(ww // 2)), dims=(1, 2))
+    Hp, Wp = _padded(Hl, Wl, wh, ww)
+    x = F.pad(x, (0, 0) * len(trail) + (0, Wp - Wl, 0, Hp - Hl))
+    x = x.reshape(B, Hp // wh, wh, Wp // ww, ww, *trail).transpose(2, 3)
+    return x.reshape(-1, wh * ww, *trail)
+
+
+def window_unpartition(w, B, Hl, Wl, wh=WINDOW[0], ww=WINDOW[1],
+                       shift=False):
+    """Inverse of :func:`window_partition` -> (B, Hl*Wl, ...)."""
+    trail = w.shape[2:]
+    Hp, Wp = _padded(Hl, Wl, wh, ww)
+    x = w.reshape(B, Hp // wh, Wp // ww, wh, ww, *trail).transpose(2, 3)
+    x = x.reshape(B, Hp, Wp, *trail)[:, :Hl, :Wl]
+    if shift:
+        x = torch.roll(x, (wh // 2, ww // 2), dims=(1, 2))
+    return x.reshape(B, Hl * Wl, *trail)
+
+
+def _attend_level(q, k, v, key_padding_mask, Hl, Wl, num_heads,
+                  wh=WINDOW[0], ww=WINDOW[1], shift=False, impl="auto"):
+    """One level's window attention on its raster: (B, Hl*Wl, C) q, k, v
+    (v already zeroed at padded keys) -> (B, Hl*Wl, C)."""
+    B, n, C = q.shape
+    keep = (torch.ones(B, n, dtype=torch.float32, device=q.device)
+            if key_padding_mask is None else (~key_padding_mask).float())
+    rasters = [x.reshape(B, Hl, Wl, -1) for x in (q, k, v, keep[..., None])]
+    if shift:
+        rasters = [torch.roll(x, (-(wh // 2), -(ww // 2)), dims=(1, 2))
+                   for x in rasters]
+    Hp, Wp = _padded(Hl, Wl, wh, ww)
+    rasters = [F.pad(x, (0, 0, 0, Wp - Wl, 0, Hp - Hl)) for x in rasters]
+    qr, kr, vr, keep = rasters
+    out = window_attention(qr, kr, vr, keep[..., 0], num_heads, wh, ww,
+                           impl=impl)[:, :Hl, :Wl]
+    if shift:
+        out = torch.roll(out, (wh // 2, ww // 2), dims=(1, 2))
+    return out.reshape(B, n, C)
+
+
+class WindowedEncoderLayer(nn.Module):
+    """Drop-in for the deformable ``EncoderLayer``: same call, and the
+    deformable ``reference_points`` argument is ignored."""
+
+    def __init__(self, embed_dims: int = 256, num_heads: int = 8,
+                 feedforward_channels: int = 1024, dropout: float = 0.1,
+                 shift: bool = False, impl: str = "auto"):
+        super().__init__()
+        C = embed_dims
+        self.num_heads, self.shift, self.impl = num_heads, shift, impl
+        self.q_proj = nn.Linear(C, C)
+        self.k_proj = nn.Linear(C, C)
+        self.v_proj = nn.Linear(C, C)
+        self.out_proj = nn.Linear(C, C)
+        self.drop = Dropout(dropout)
+        self.norm1 = nn.LayerNorm(C, eps=1e-6)   # the JAX LayerNorm epsilon
+        self.ffn = FFN(C, feedforward_channels, dropout)
+        self.norm2 = nn.LayerNorm(C, eps=1e-6)
+
+    def forward(self, x, pos, reference_points, spatial_shapes: Sequence,
+                key_padding_mask):
+        qk = x if pos is None else x + pos
+        q, k = self.q_proj(qk), self.k_proj(qk)
+        v = self.v_proj(x)
+        if key_padding_mask is not None:
+            v = v.masked_fill(key_padding_mask[..., None], 0.0)
+        outs, start = [], 0
+        for Hl, Wl in spatial_shapes:
+            sl = slice(start, start + Hl * Wl)
+            kpm = None if key_padding_mask is None else key_padding_mask[:, sl]
+            outs.append(_attend_level(q[:, sl], k[:, sl], v[:, sl], kpm, Hl,
+                                      Wl, self.num_heads, *WINDOW,
+                                      shift=self.shift, impl=self.impl))
+            start += Hl * Wl
+        out = self.drop(self.out_proj(torch.cat(outs, 1)))
+        return self.norm2(self.ffn(self.norm1(x + out)))

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("msda_fwd", "msda_bwd")
+KERNELS = ("msda_fwd", "msda_bwd", "window_attn_fwd", "window_attn_bwd")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # ctypes signatures: pointers (and the stream) as c_void_p, ints as c_int
@@ -33,7 +33,14 @@ _ARGTYPES = {
                 + [ctypes.c_void_p],
     "msda_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                 + [ctypes.c_void_p],
+    "window_attn_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p],
+    "window_attn_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p],
 }
+# head sizes the window-attention kernels are compiled for: the flagship's
+# 256 / 8 and the tiny debug configs' 64 / 8
+WINDOW_HEAD_DIMS = (8, 32)
 
 
 def _nvcc() -> str:
@@ -185,3 +192,71 @@ def msda_bwd(value: torch.Tensor, shapes: torch.Tensor,
             grad_attn.data_ptr(), _DTYPE_CODES[value.dtype], B, N, Q, H, D,
             L, P)
     return grad_value.to(value.dtype), grad_loc, grad_attn
+
+
+def _check_window(name: str, q: torch.Tensor, num_heads: int, wh: int,
+                  ww: int, **tensors):
+    for k, t in dict(q=q, **tensors).items():
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name}: {k} must be on {q.device} (a CUDA "
+                             f"device), got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
+        want = torch.float32 if k == "keep" else q.dtype
+        if t.dtype != want:
+            raise TypeError(f"{name}: {k} must be {want}, got {t.dtype}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported")
+    if q.dim() != 4:
+        raise ValueError(f"{name}: expected (B, Hp, Wp, C) rasters, got "
+                         f"{tuple(q.shape)}")
+    B, Hp, Wp, C = q.shape
+    for k, t in tensors.items():
+        want = (B, Hp, Wp) if k == "keep" else (B, Hp, Wp, C)
+        if t.shape != want:
+            raise ValueError(f"{name}: {k} {tuple(t.shape)} is not {want}")
+    if Hp % wh or Wp % ww or B * Hp * Wp == 0:
+        raise ValueError(f"{name}: raster {Hp}x{Wp} is empty or not a "
+                         f"multiple of the ({wh}, {ww}) window")
+    if wh * ww > 1024:
+        raise ValueError(f"{name}: window of {wh * ww} tokens > 1024")
+    if C % num_heads or C // num_heads not in WINDOW_HEAD_DIMS:
+        raise ValueError(f"{name}: head size C / num_heads = {C} / "
+                         f"{num_heads} not in {WINDOW_HEAD_DIMS}")
+    return B, Hp, Wp, C
+
+
+def window_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    keep: torch.Tensor, num_heads: int, wh: int = 8,
+                    ww: int = 16) -> torch.Tensor:
+    """Launch ``csrc/window_attn_fwd.cu`` on the current stream.
+
+    q, k, v ``(B, Hp, Wp, C)`` float32 or bfloat16 (one dtype), keep
+    ``(B, Hp, Wp)`` float32 0/1; all on one CUDA device and contiguous.
+    Returns ``(B, Hp, Wp, C)`` in q's dtype.
+    """
+    B, Hp, Wp, C = _check_window("window_attn_fwd", q, num_heads, wh, ww,
+                                 k=k, v=v, keep=keep)
+    out = torch.empty_like(q)
+    _launch("window_attn_fwd", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), keep.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], B, Hp, Wp, C, num_heads, wh, ww)
+    return out
+
+
+def window_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    keep: torch.Tensor, grad_out: torch.Tensor,
+                    num_heads: int, wh: int = 8, ww: int = 16):
+    """Launch ``csrc/window_attn_bwd.cu`` on the current stream.
+
+    Inputs as ``window_attn_fwd`` plus grad_out ``(B, Hp, Wp, C)`` in q's
+    dtype. Returns ``(dq, dk, dv)`` in q's dtype.
+    """
+    B, Hp, Wp, C = _check_window("window_attn_bwd", q, num_heads, wh, ww,
+                                 k=k, v=v, keep=keep, grad_out=grad_out)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    _launch("window_attn_bwd", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), keep.data_ptr(), grad_out.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODES[q.dtype], B, Hp, Wp, C, num_heads, wh, ww)
+    return dq, dk, dv

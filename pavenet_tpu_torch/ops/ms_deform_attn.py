@@ -25,6 +25,11 @@ import torch.nn.functional as F
 from . import _ext
 
 Shapes = Tuple[Tuple[int, int], ...]
+# the JAX package's names for the same two routes: its XLA gather, and its
+# Pallas kernels (first-generation 'pallas' and 'pallas_split', corner-stream
+# 'cs'), which all compute the function the CUDA kernels compute
+IMPLS = {"torch": "torch", "xla": "torch", "cuda": "cuda", "pallas": "cuda",
+         "cs": "cuda", "pallas_split": "cuda"}
 
 
 def _check_shapes(value, spatial_shapes: Sequence, locations) -> Shapes:
@@ -87,7 +92,9 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence,
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor,
                    impl: str = "auto") -> torch.Tensor:
-    """Dispatch msda; ``impl`` in {'auto', 'torch', 'cuda'}.
+    """Dispatch msda; ``impl`` in {'auto', 'torch', 'cuda'} or the JAX
+    package's names for them: 'xla' (plain), 'pallas', 'cs' and
+    'pallas_split' (kernels).
 
     'auto' is 'cuda' for a CUDA ``value`` and 'torch' for a CPU one. 'cuda'
     runs ``MSDeformAttnFunction`` (the forward and backward kernels) or
@@ -96,13 +103,13 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence,
     """
     if impl == "auto":
         impl = "cuda" if value.is_cuda else "torch"
-    if impl == "torch":
+    if impl not in IMPLS:
+        raise ValueError(f"unknown msda impl {impl!r}")
+    if IMPLS[impl] == "torch":
         return ms_deform_attn_torch(value, spatial_shapes, sampling_locations,
                                     attention_weights)
-    if impl != "cuda":
-        raise ValueError(f"unknown msda impl {impl!r}")
     if not value.is_cuda:
-        raise ValueError("impl='cuda' needs CUDA tensors; got "
+        raise ValueError(f"impl={impl!r} needs CUDA tensors; got "
                          f"{value.device}")
     shapes = _check_shapes(value, spatial_shapes, sampling_locations)
     starts, n = [], 0

@@ -30,8 +30,9 @@ def test_config_fromfile_equals_jax(path):
 
 def test_builder_refuses_what_is_not_ported():
     cfg = Config.fromfile(os.path.join(
-        REPO, "configs/videopose/pavenet_r50_frames3_posetrack17_windowed.py"))
-    with pytest.raises(KeyError, match="windowed"):
+        REPO, "configs/videopose/pavenet_tiny_debug_windowed.py"))
+    cfg.model.bbox_head.transformer.encoder.mode = "swin"
+    with pytest.raises(KeyError, match="encoder mode"):
         build_detector(cfg.model)
     cfg = Config.fromfile(os.path.join(
         REPO, "configs/videopose/pavenet_tiny_debug.py"))

@@ -88,7 +88,7 @@ def test_cuda_impl_raises_on_cpu_and_auto_launches_nothing():
     with pytest.raises(ValueError, match="CUDA"):
         ms_deform_attn(value, shapes, locs, w, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
-        ms_deform_attn(value, shapes, locs, w, impl="xla")
+        ms_deform_attn(value, shapes, locs, w, impl="triton")
     out = ms_deform_attn(value, shapes, locs, w, impl="auto")
     assert out.shape == (2, 7, 2 * 4)
     out.sum().backward()
