@@ -11,7 +11,7 @@ non-zero):
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit.
 2. build:  compiles every ``csrc/*.cu`` (msda forward and backward, window
    attention forward and backward) with nvcc, in parallel, and prints each
-   build time.
+   build time and ptxas's registers, spills and shared memory per kernel.
 3. msda forward kernel against its plain PyTorch version at the main-path
    shapes (encoder, pose decoder, serving joint decoder Q=300, train joint
    decoder Q=450), value in f32 and bf16, plus edge levels (1-row, 1-column,
@@ -19,12 +19,14 @@ non-zero):
 4. msda backward kernel against autograd of the plain version at the
    encoder, pose decoder and train joint decoder shapes and the edge
    levels, f32 and bf16; backward times of both.
-5. window attention: the forward and backward kernels against the plain
-   version and its autograd at the four flagship level rasters (B=3, C=256,
-   8 heads), unshifted and shifted, with bucket padding and one fully
-   masked window, and at a 1x2 level, f32 and bf16; times of kernel, plain,
-   ``scaled_dot_product_attention`` on the partitioned layout (timed only)
-   and the bound.
+5. window attention: the forward and backward kernels, one launch over an
+   encoder layer's level rasters, against the plain version and its
+   autograd level by level: the four flagship levels (B=3, C=256, 8 heads)
+   unshifted and shifted, with bucket padding and one fully masked window
+   per level; a 1x2 level; head size 8 (C=64) at the tiny config's levels;
+   f32 and bf16. Times per layer of kernel, plain (a loop over the levels),
+   ``scaled_dot_product_attention`` on the partitioned layout (its level
+   calls in turn; timed only) and the bound; then a per-level breakdown.
 6. flagship serve: ``init_detector`` (random weights from a seed) and
    ``inference_detector`` on 3 synthetic 720x1280 clips (800x1344 bucket):
    shapes, finiteness, exactly 11 msda launches per clip; then
@@ -37,13 +39,13 @@ non-zero):
    gradient changed; ms/step, host matching share, peak memory; then one
    mini-step cuda against torch on the weights as initialised (same
    matches, losses within 1e-4, gradient norm within 1e-3).
-8. windowed serve: phase 6 on the windowed config, 24 window-attention
-   (6 layers x 4 levels) and 5 msda launches per clip.
-9. windowed train: phase 7 on the windowed config, 24+24 window-attention
+8. windowed serve: phase 6 on the windowed config, 6 window-attention
+   (one per encoder layer, over its 4 levels) and 5 msda launches per clip.
+9. windowed train: phase 7 on the windowed config, 6+6 window-attention
    and 5+5 msda launches per mini-step.
 10. distill: the flagship teacher and the windowed student
    (``create_distill_state``), 4 steps at 800x1344, B=1: exactly 6 msda
-   forward and 24+24 window-attention launches per step, finite MSE, every
+   forward and 6+6 window-attention launches per step, finite MSE, every
    entry outside the encoder bit-identical to the teacher's, the encoder
    weights changed; then one step cuda against torch (MSE and rel within
    1e-5, gradient norm within 1e-3).
@@ -68,18 +70,21 @@ WINDOWED_CONFIG = ("configs/videopose/"
 CLIPS = 3
 CALLS_PER_CLIP = 11   # 6 encoder + 3 pose-decoder + 2 joint-decoder layers
 TRAIN_STEPS = 8       # = cumulative_iters of the flagship config
-# the windowed variant: 6 encoder layers of window attention, one call per
-# pyramid level each (as the JAX layer calls its kernel), so 6 x 4; msda only
-# in the 3 pose-decoder and 2 joint-decoder layers
-WINDOW_CALLS, WINDOWED_MSDA_CALLS = 6 * 4, 5
+# the windowed variant: 6 encoder layers of window attention, one launch
+# per layer over its four pyramid levels; msda only in the 3 pose-decoder
+# and 2 joint-decoder layers
+WINDOW_CALLS, WINDOWED_MSDA_CALLS = 6, 5
 DISTILL_STEPS = 4
 WINDOW = (8, 16)
 IMG_SHAPE = (750, 1333)   # a 720x1280 clip resized into the 800x1344 bucket
 EDGE_WINDOW_LEVEL = (1, 2)
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 flop/s outside
-# the tensor cores
+TINY_LEVELS = ((12, 20), (6, 10), (3, 5), (2, 3))   # tiny configs, 96x160
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 flop/s outside the
+# tensor cores, and the dense TF32 and bf16 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 # flops per in-range tap and channel, corner weights counted once per tap:
 # forward 4 corner FMAs + the weighted sum; backward the bilinear value,
 # its x and y derivatives, three dot products and four scaled atomics
@@ -240,13 +245,15 @@ def check_backward(ext, ms_deform_attn_torch):
 
 
 def window_cases():
-    """(name, level (Hl, Wl), B, C, heads, shift) of the window-attention
-    calls: the four flagship level rasters unshifted and shifted, and an
-    edge level smaller than one window."""
-    cases = [(f"level{i}", hw, 3, 256, 8, shift)
-             for shift in (False, True)
-             for i, hw in enumerate(FLAGSHIP_LEVELS)]
-    return cases + [("edge", EDGE_WINDOW_LEVEL, 3, 256, 8, False)]
+    """(name, levels (Hl, Wl), B, C, heads, shift) of the window-attention
+    launches, each one call over its levels as an encoder layer makes it:
+    the four flagship level rasters unshifted and shifted, an edge level
+    smaller than one window, and head size 8 (C=64, 8 heads) at the tiny
+    windowed config's levels."""
+    return [("layer", FLAGSHIP_LEVELS, 3, 256, 8, False),
+            ("layer_shifted", FLAGSHIP_LEVELS, 3, 256, 8, True),
+            ("edge", (EDGE_WINDOW_LEVEL,), 3, 256, 8, False),
+            ("d8", TINY_LEVELS, 2, 64, 8, True)]
 
 
 def window_inputs(gen, level, B, C, shift, dtype):
@@ -270,19 +277,25 @@ def window_inputs(gen, level, B, C, shift, dtype):
     return q, k, v, keep.contiguous()
 
 
-def window_bound(backward, q):
-    """Least time of one call on an H100: q, k, v (and g) read once and the
-    output(s) written once over the HBM rate, against the score and value
-    products (two per window and head forward, five backward) over the f32
-    rate. Every window of the padded raster counts: the function is
-    defined on it."""
-    B, Hp, Wp, C = q.shape
+def window_bound(backward, qs):
+    """Least time of one launch over the level rasters ``qs`` on an H100:
+    q, k, v (and g) read once, the output(s) written once and keep read
+    once over the HBM rate, against the score and value products (two per
+    window and head forward, five backward) over the tensor-core rate of
+    the dtype: f32 as 3xTF32 (three TF32 products per product), bf16 at its
+    own rate. Every window of the padded rasters counts: the function is
+    defined on them."""
+    import torch
     S = WINDOW[0] * WINDOW[1]
-    rasters = 7 if backward else 4
-    nbytes = rasters * q.numel() * q.element_size() + B * Hp * Wp * 4
-    windows = B * (Hp // WINDOW[0]) * (Wp // WINDOW[1])
-    flops = windows * (5 if backward else 2) * 2 * S * S * C
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    nbytes = flops = 0
+    for q in qs:
+        B, Hp, Wp, C = q.shape
+        nbytes += ((7 if backward else 4) * q.numel() * q.element_size()
+                   + B * Hp * Wp * 4)
+        windows = B * (Hp // WINDOW[0]) * (Wp // WINDOW[1])
+        flops += windows * (5 if backward else 2) * 2 * S * S * C
+    rate = TF32_FLOPS / 3 if qs[0].dtype == torch.float32 else BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -306,79 +319,128 @@ def sdpa_inputs(q, k, v, keep, heads):
     return [part(x).requires_grad_() for x in (q, k, v)], mask
 
 
+class Sdpa:
+    """The library yardstick on one level: ``scaled_dot_product_attention``
+    on the partitioned layout, its output and an output gradient."""
+
+    def __init__(self, gen, q, k, v, keep, heads):
+        import torch
+        self.ins, self.mask = sdpa_inputs(q, k, v, keep, heads)
+        self.out = self()
+        self.grad = torch.randn(self.out.shape, device="cuda",
+                                generator=gen).to(q.dtype)
+
+    def __call__(self):
+        import torch.nn.functional as F
+        return F.scaled_dot_product_attention(*self.ins, attn_mask=self.mask)
+
+    def backward(self):
+        import torch
+        return torch.autograd.grad(self.out, self.ins, self.grad,
+                                   retain_graph=True)
+
+    def forward_backward(self):
+        import torch
+        return torch.autograd.grad(self(), self.ins, self.grad)
+
+
 def check_window(ext):
-    """Window-attention forward and backward kernels against the plain
-    version (forward) and autograd of it (backward), f32 and bf16; times of
-    kernel, plain, the SDPA yardstick and the bound. Returns (forward
-    records, backward records)."""
+    """Window-attention forward and backward kernels, one launch over each
+    case's levels, against the plain version (forward) and autograd of it
+    (backward) level by level, f32 and bf16; times of kernel, plain (a loop
+    over the levels), SDPA (its level calls in turn) and the bound. For the
+    flagship layer also a per-level breakdown (one-level launches). Returns
+    (forward records, backward records, per-level records)."""
     import torch
-    import torch.nn.functional as F
     from pavenet_tpu_torch.ops.window_attn import window_attention_torch
     gen = torch.Generator(device="cuda").manual_seed(2)
-    fwd, bwd = [], []
-    for name, level, B, C, heads, shift in window_cases():
+    fwd, bwd, per_level = [], [], []
+    for name, levels, B, C, heads, shift in window_cases():
         for dtype, fwd_tol, bwd_tol in ((torch.float32, 1e-5, 1e-4),
                                         (torch.bfloat16, 2e-2, 2e-2)):
-            q, k, v, keep = window_inputs(gen, level, B, C, shift, dtype)
-            g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
-            base = dict(case=name, level=list(level),
-                        raster=list(q.shape[1:3]), shift=shift,
+            qs, ks, vs, keeps = map(list, zip(*(
+                window_inputs(gen, lv, B, C, shift, dtype) for lv in levels)))
+            gs = [torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+                  for q in qs]
+            base = dict(case=name, levels=[list(lv) for lv in levels],
+                        rasters=[list(q.shape[1:3]) for q in qs], shift=shift,
                         dtype=str(dtype).replace("torch.", ""), B=B, C=C,
                         heads=heads)
-            got = ext.window_attn_fwd(q, k, v, keep, heads).float()
+            got = ext.window_attn_fwd(qs, ks, vs, keeps, heads)
             torch.cuda.synchronize()
-            ins = [x.float().requires_grad_() for x in (q, k, v)]
-            want = window_attention_torch(*ins, keep, heads)
-            err = (got - want).abs().max().item()
-            tol = fwd_tol * want.abs().max().item()
-            if not err <= tol:
-                raise AssertionError(f"window fwd {name} {dtype}: max abs err "
-                                     f"{err} > {tol}")
-            sq, mask = sdpa_inputs(q, k, v, keep, heads)
-
-            def sdpa():
-                return F.scaled_dot_product_attention(*sq, attn_mask=mask)
-
-            lib_out = sdpa()
-            lg = torch.randn(lib_out.shape, device="cuda",
-                             generator=gen).to(dtype)
-            bound_ms, bound_by = window_bound(False, q)
-            rec = dict(base, max_abs_err=err, tol=tol,
-                       ms=cuda_ms(lambda: ext.window_attn_fwd(q, k, v, keep,
-                                                              heads)),
-                       plain_ms=cuda_ms(lambda: window_attention_torch(
-                           q, k, v, keep, heads)),
-                       library_ms=cuda_ms(sdpa),
-                       library_fwd_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
-                           sdpa(), sq, lg)),
+            ins = [[x.float().requires_grad_() for x in lv]
+                   for lv in zip(qs, ks, vs)]
+            want = [window_attention_torch(*x, keep, heads)
+                    for x, keep in zip(ins, keeps)]
+            err = 0.0
+            for i, (a, b) in enumerate(zip(got, want)):
+                e = (a.float() - b).abs().max().item()
+                tol = fwd_tol * b.abs().max().item()
+                if not e <= tol:
+                    raise AssertionError(f"window fwd {name} level {i} "
+                                         f"{dtype}: max abs err {e} > {tol}")
+                err = max(err, e)
+            sdpa = [Sdpa(gen, *lv, heads) for lv in zip(qs, ks, vs, keeps)]
+            bound_ms, bound_by = window_bound(False, qs)
+            rec = dict(base, max_abs_err=err, rel_tol=fwd_tol,
+                       ms=cuda_ms(lambda: ext.window_attn_fwd(
+                           qs, ks, vs, keeps, heads)),
+                       plain_ms=cuda_ms(lambda: [
+                           window_attention_torch(*lv, heads)
+                           for lv in zip(qs, ks, vs, keeps)]),
+                       library_ms=cuda_ms(lambda: [f() for f in sdpa]),
+                       library_fwd_bwd_ms=cuda_ms(lambda: [
+                           f.forward_backward() for f in sdpa]),
                        bound_ms=bound_ms, bound_by=bound_by)
             print("window fwd", json.dumps(rec), flush=True)
             fwd.append(rec)
 
-            got = ext.window_attn_bwd(q, k, v, keep, g, heads)
+            got = ext.window_attn_bwd(qs, ks, vs, keeps, gs, heads)
             torch.cuda.synchronize()
-            want = torch.autograd.grad(want, ins, g.float(), retain_graph=True)
+            flat = [x for lv in ins for x in lv]
+            grads = torch.autograd.grad(want, flat, [g.float() for g in gs],
+                                        retain_graph=True)
             errs = {}
-            for key, a, b in zip(("dq", "dk", "dv"), got, want):
-                errs[key] = (a.float() - b).abs().max().item()
-                tol = bwd_tol * b.abs().max().item()
-                if not errs[key] <= tol:
-                    raise AssertionError(f"window bwd {name} {dtype} {key}: "
-                                         f"max abs err {errs[key]} > {tol}")
-            out = window_attention_torch(*ins, keep, heads)
-            bound_ms, bound_by = window_bound(True, q)
+            for i in range(len(qs)):
+                for j, key in enumerate(("dq", "dk", "dv")):
+                    a, b = got[j][i], grads[3 * i + j]
+                    e = (a.float() - b).abs().max().item()
+                    tol = bwd_tol * b.abs().max().item()
+                    if not e <= tol:
+                        raise AssertionError(f"window bwd {name} level {i} "
+                                             f"{dtype} {key}: max abs err "
+                                             f"{e} > {tol}")
+                    errs[key] = max(errs.get(key, 0.0), e)
+            bound_ms, bound_by = window_bound(True, qs)
             rec = dict(base, max_abs_err=max(errs.values()), errs=errs,
                        rel_tol=bwd_tol,
-                       ms=cuda_ms(lambda: ext.window_attn_bwd(q, k, v, keep, g,
-                                                              heads)),
+                       ms=cuda_ms(lambda: ext.window_attn_bwd(
+                           qs, ks, vs, keeps, gs, heads)),
                        plain_ms=cuda_ms(lambda: torch.autograd.grad(
-                           out, ins, g.float(), retain_graph=True)),
-                       library_ms=cuda_ms(lambda: torch.autograd.grad(
-                           lib_out, sq, lg, retain_graph=True)),
+                           want, flat, [g.float() for g in gs],
+                           retain_graph=True)),
+                       library_ms=cuda_ms(lambda: [f.backward()
+                                                   for f in sdpa]),
                        bound_ms=bound_ms, bound_by=bound_by)
             print("window bwd", json.dumps(rec), flush=True)
             bwd.append(rec)
-    return fwd, bwd
+            if name != "layer":
+                continue
+            for i, lv in enumerate(zip(qs, ks, vs, keeps)):
+                one = [[x] for x in lv]
+                rec = dict(case=f"level{i}", level=list(levels[i]),
+                           raster=list(qs[i].shape[1:3]), dtype=base["dtype"],
+                           fwd_ms=cuda_ms(lambda: ext.window_attn_fwd(
+                               *one, heads)),
+                           fwd_sdpa_ms=cuda_ms(sdpa[i]),
+                           fwd_bound_ms=window_bound(False, one[0])[0],
+                           bwd_ms=cuda_ms(lambda: ext.window_attn_bwd(
+                               *one, [gs[i]], heads)),
+                           bwd_sdpa_ms=cuda_ms(sdpa[i].backward),
+                           bwd_bound_ms=window_bound(True, one[0])[0])
+                print("window level", json.dumps(rec), flush=True)
+                per_level.append(rec)
+    return fwd, bwd, per_level
 
 
 def synthetic_clips(seed=0):
@@ -400,19 +462,19 @@ def check_detections(out, M=20, K=15):
 
 def reset_launches():
     from pavenet_tpu_torch.ops.ms_deform_attn import ms_deform_attn
-    from pavenet_tpu_torch.ops.window_attn import window_attention
-    for fn in (ms_deform_attn, window_attention):
+    from pavenet_tpu_torch.ops.window_attn import window_attention_levels
+    for fn in (ms_deform_attn, window_attention_levels):
         fn.launches = fn.backward_launches = 0
 
 
 def read_launches():
     """Kernel launches since ``reset_launches``, by kernel."""
     from pavenet_tpu_torch.ops.ms_deform_attn import ms_deform_attn
-    from pavenet_tpu_torch.ops.window_attn import window_attention
+    from pavenet_tpu_torch.ops.window_attn import window_attention_levels
     return {"msda_fwd": ms_deform_attn.launches,
             "msda_bwd": ms_deform_attn.backward_launches,
-            "window_attn_fwd": window_attention.launches,
-            "window_attn_bwd": window_attention.backward_launches}
+            "window_attn_fwd": window_attention_levels.launches,
+            "window_attn_bwd": window_attention_levels.backward_launches}
 
 
 def check_launches(what, got, per_step, steps):
@@ -714,27 +776,16 @@ def kernel_record(name, records, launches, replaces, **extra):
     ``bound_ms`` of one main-path call (msda: the encoder call; window
     attention: one encoder layer, the four flagship levels unshifted), f32;
     ``max_abs_err`` the largest of every checked shape and dtype."""
-    f32 = [r for r in records if r["dtype"] == "float32"]
-    if name.startswith("msda"):
-        f32 = [r for r in f32 if r["case"] == "encoder"]
-    else:
-        f32 = [r for r in f32 if r["case"].startswith("level")
-               and not r["shift"]]
-
-    def total(key):
-        vals = [r.get(key) for r in f32]
-        return None if None in vals else sum(vals)
-
-    t_bytes = sum(r["bound_ms"] for r in f32 if r["bound_by"] == "bytes")
+    main_call = "encoder" if name.startswith("msda") else "layer"
+    rec, = [r for r in records
+            if r["dtype"] == "float32" and r["case"] == main_call]
     return {"name": name, "route": "cuda",
             "source": f"pavenet_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in records),
-            "ms": total("ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"),
-            "bound_by": ("bytes" if t_bytes >= total("bound_ms") / 2
-                         else "operations"),
-            "library_ms": total("library_ms"), **extra}
+            **{k: rec.get(k) for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+            **extra}
 
 
 def main():
@@ -760,11 +811,14 @@ def main():
     # 2. build (every kernel at once)
     for name, seconds in _ext.build_all().items():
         print(f"build: csrc/{name}.cu in {seconds:.2f} s", flush=True)
+        for line in _ext.build_log(name).splitlines():
+            if "Used" in line or "spill" in line or "Compiling" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
 
     # 3-5. kernels vs plain
     fwd = check_forward(ms_deform_attn, ms_deform_attn_torch)
     bwd = check_backward(_ext, ms_deform_attn_torch)
-    win_fwd, win_bwd = check_window(_ext)
+    win_fwd, win_bwd, _ = check_window(_ext)
 
     # 6-7. flagship (deformable) serve and train
     flagship = {"msda_fwd": CALLS_PER_CLIP, "msda_bwd": CALLS_PER_CLIP}

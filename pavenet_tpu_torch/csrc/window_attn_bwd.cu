@@ -1,8 +1,9 @@
-// Window attention, backward, for Hopper (sm_90a).
+// Window attention, backward, for Hopper (sm_90a), on tensor cores; one
+// launch takes every level raster of an encoder layer.
 //
 // Replaces the TPU Pallas kernel
-// pavenet_tpu/ops/pallas/window_attn.py::window_attention's backward
-// (_bwd_vjp, body _bwd_kernel).  Per (window, head), with the forward's
+// pavenet_tpu/ops/pallas/window_attn.py:193 (_bwd_vjp, body _bwd_kernel
+// :84).  Per (window, head), with the forward's
 // s[i,j] = keep[j] ? (q_i . k_j) * scale : -1e9, a = softmax_j(s) and the
 // output gradient g:
 //
@@ -12,238 +13,174 @@
 //   dk_j = scale sum_i ds[i,j] q_i
 //   dv_j = sum_i a[i,j] g_i
 //
-// ds is zero at masked keys, as autograd of the masked softmax gives; the
-// TPU kernel leaves it to a == 0 there, which is the same wherever a window
-// has a real key or its values are zero (the model zeroes v at padded keys).
-// keep gets no gradient.
+// ds is zero at masked keys, as autograd of the masked softmax gives; keep
+// gets no gradient.  No atomics: the result is deterministic.
 //
-// What bounds it: arithmetic.  One flagship call (603 windows of 128 tokens,
-// 8 heads, D=32, f32) needs five 128x128x32 products per (window, head),
-// 25.3 GFLOP, against 553 MB of q/k/v/g/dq/dk/dv traffic: 0.377 ms at the
-// H100's 67 TFLOP/s f32 rate against 0.165 ms at 3.35 TB/s.  This kernel
-// runs plain f32 FMAs outside the tensor cores and recomputes the scores in
-// each pass (about 1.8x the five products' FMAs).
+// What bounds it on an H100: bytes.  One flagship layer (603 windows of
+// 128 tokens, 8 heads, D = 32, f32) moves 553 MB of q, k, v, g, keep, dq,
+// dk and dv: 0.165 ms at 3.35 TB/s, against 25.3 GFLOP of the five
+// products, 0.153 ms at the 3xTF32 rate (495 / 3 TFLOP/s).  In bf16 0.083
+// ms of bytes against 0.026 ms at 989 TFLOP/s.
 //
-// What this design does about it: one block per (window, head), no atomics,
-// so the result is deterministic.  q, k, v and g head slices of the window
-// are staged once in shared memory, and every thread walks them in the same
-// order, so each shared-memory read is a broadcast.
-//   Pass 1, one thread per query i: the row's softmax max and sum and
-//   delta_i by an online softmax, then dq_i from a second walk over the
-//   keys; the row statistics go to shared memory.
-//   Pass 2, one thread per key j: dv_j and dk_j, with a[i,j] recomputed from
-//   the stored row statistics.
-// Left to later PRs: tensor cores (mma/wgmma in TF32 or bf16), keeping s and
-// dp of pass 1 instead of recomputing them.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// What the design does about it: one block per (window, head), 8 warps;
+// the five products on tensor cores (float32 as 3xTF32, bf16 as m16n8k16
+// with f32 sums, see window_attn_fwd.cu and window_attn_common.cuh), each
+// computed once.  Of the two layouts for the transposed products this is
+// the one that stages P and dS in shared memory:
+//   pass 1, warp w owns query rows 16w..16w+15: s = q k^T and dp = g v^T
+//   in registers (16 x 128 each), the exact softmax, delta and ds in
+//   registers, dq = ds k; P and ds go to shared memory;
+//   pass 2, warp w owns key rows 16w..16w+15: dv = P^T g and dk = ds^T q
+//   read P and ds transposed from shared memory.
+// The other layout (a key-major second pass that recomputes s^T and dp^T
+// from each row's max and 1/sum) needs two more products, 7 instead of 5.
+// This one costs shared memory instead: 213 KB a block in f32 (one block an
+// SM), 109 KB in bf16 (two).  Row max and 1/sum stay apart, never folded
+// into a log-sum-exp: in a fully masked row every score is -1e9, and
+// -1e9 + log(128) rounds to -1e9 in f32.
+// q, k, v and g head slices are staged once with 16-byte cp.async, heads
+// of a window next to each other in the grid as in the forward.
+// Left to later PRs: wgmma, TMA, several heads per block, and a layout
+// that fits two f32 blocks per SM (P and ds in bf16 pairs, or the
+// recomputing variant) so that one block's loads overlap another's math.
+#include "window_attn_common.cuh"
 
 namespace {
 
-constexpr float kMasked = -1e9f;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Raster index (b, y, x) of token t of window w; windows are numbered
-// (b, window row, window column) in raster order.
-__device__ __forceinline__ int64_t token_index(int w, int t, int Hp, int Wp,
-                                               int wh, int ww) {
-  const int nww = Wp / ww, nwh = Hp / wh;
-  const int b = w / (nwh * nww);
-  const int rem = w - b * nwh * nww;
-  const int wi = rem / nww, wj = rem - wi * nww;
-  const int r = t / ww, c = t - r * ww;
-  return ((int64_t)b * Hp + wi * wh + r) * Wp + wj * ww + c;
-}
-
-template <int D>
-__device__ __forceinline__ float dot(const float* a, const float* b) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) s = fmaf(a[d], b[d], s);
-  return s;
-}
+using namespace wattn;
 
 template <typename T, int D>
-__global__ void window_attn_bwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ keep,
-    const T* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk,
-    T* __restrict__ dv, int Hp, int Wp, int C, int wh, int ww, float scale) {
-  extern __shared__ float smem[];
-  const int S = wh * ww;
-  float* qs = smem;           // (S, D) each
-  float* ks = qs + S * D;
-  float* vs = ks + S * D;
-  float* gs = vs + S * D;
-  float* kp = gs + S * D;     // (S,) keep
-  float* rmax = kp + S;       // (S,) max score of each query row
-  float* rinv = rmax + S;     // (S,) 1 / sum_j e^(s - max) of each row
-  float* dl = rinv + S;       // (S,) delta of each query row
-  const int w = blockIdx.x, h = blockIdx.y;
+constexpr size_t bwd_smem() {
+  using St = Strides<T, D>;
+  return (size_t)kTokens * (2 * St::kv + 2 * St::qg + 2 * kScoreStride)
+             * sizeof(T)
+         + kTokens * sizeof(float);
+}
 
-  for (int idx = threadIdx.x; idx < S * D; idx += blockDim.x) {
-    const int t = idx / D, d = idx - t * D;
-    const int64_t off = token_index(w, t, Hp, Wp, wh, ww) * C + h * D + d;
-    qs[idx] = to_float(q[off]);
-    ks[idx] = to_float(k[off]);
-    vs[idx] = to_float(v[off]);
-    gs[idx] = to_float(g[off]);
-  }
-  for (int t = threadIdx.x; t < S; t += blockDim.x)
-    kp[t] = keep[token_index(w, t, Hp, Wp, wh, ww)];
-  __syncthreads();
-
-  // pass 1: one thread per query row i -> softmax statistics, delta_i, dq_i
-  // (max and sum are kept apart, not as one log-sum-exp: in a fully masked
-  // row every score is -1e9, where log(S) is below float's resolution)
-  const int i = threadIdx.x;
-  if (i < S) {
-    float qi[D], gi[D], acc[D];
+template <typename T>
+__device__ __forceinline__ void store_scores(T* dst, int r,
+                                             const float (&x)[16][4]) {
+  const int t = threadIdx.x & 3;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      qi[d] = qs[i * D + d];
-      gi[d] = gs[i * D + d];
-      acc[d] = 0.f;
-    }
-    float m = -INFINITY, l = 0.f, t = 0.f;   // t = sum_j e^(s-m) dp
-    for (int j = 0; j < S; ++j) {
-      const float s = kp[j] > 0.5f ? dot<D>(qi, ks + j * D) * scale
-                                   : kMasked;
-      const float dp = dot<D>(gi, vs + j * D);
-      if (s > m) {
-        const float c = expf(m - s);
-        l *= c;
-        t *= c;
-        m = s;
-      }
-      const float p = expf(s - m);
-      l += p;
-      t = fmaf(p, dp, t);
-    }
-    const float inv = 1.f / l;
-    const float delta = t * inv;
-    rmax[i] = m;
-    rinv[i] = inv;
-    dl[i] = delta;
-    for (int j = 0; j < S; ++j) {
-      if (kp[j] <= 0.5f) continue;           // ds = 0 at masked keys
-      const float* kj = ks + j * D;
-      const float a = expf(dot<D>(qi, kj) * scale - m) * inv;
-      const float ds = a * (dot<D>(gi, vs + j * D) - delta);
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, kj[d], acc[d]);
-    }
-    const int64_t off = token_index(w, i, Hp, Wp, wh, ww) * C + h * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) dq[off + d] = from_float<T>(acc[d] * scale);
-  }
-  __syncthreads();
-
-  // pass 2: one thread per key j -> dk_j, dv_j
-  const int j = threadIdx.x;
-  if (j < S) {
-    float kj[D], vj[D], dka[D], dva[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      kj[d] = ks[j * D + d];
-      vj[d] = vs[j * D + d];
-      dka[d] = 0.f;
-      dva[d] = 0.f;
-    }
-    const bool kept = kp[j] > 0.5f;
-    for (int r = 0; r < S; ++r) {
-      const float* qr = qs + r * D;
-      const float* gr = gs + r * D;
-      const float s = kept ? dot<D>(kj, qr) * scale : kMasked;
-      const float a = expf(s - rmax[r]) * rinv[r];
-#pragma unroll
-      for (int d = 0; d < D; ++d) dva[d] = fmaf(a, gr[d], dva[d]);
-      if (kept) {
-        const float ds = a * (dot<D>(vj, gr) - dl[r]);
-#pragma unroll
-        for (int d = 0; d < D; ++d) dka[d] = fmaf(ds, qr[d], dka[d]);
-      }
-    }
-    const int64_t off = token_index(w, j, Hp, Wp, wh, ww) * C + h * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      dk[off + d] = from_float<T>(dka[d] * scale);
-      dv[off + d] = from_float<T>(dva[d]);
-    }
+  for (int j = 0; j < 16; ++j) {
+    store2(dst + r * kScoreStride + j * 8 + 2 * t, x[j][0], x[j][1]);
+    store2(dst + (r + 8) * kScoreStride + j * 8 + 2 * t, x[j][2], x[j][3]);
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* keep, const void* g, void* dq, void* dk,
-                   void* dv, int B, int Hp, int Wp, int C, int num_heads,
-                   int wh, int ww, cudaStream_t stream) {
-  const int S = wh * ww;
-  const size_t smem = (size_t)(4 * S * D + 4 * S) * sizeof(float);
+__global__ void __launch_bounds__(kThreads)
+    window_attn_bwd_kernel(const __grid_constant__ LevelTable tab) {
+  using St = Strides<T, D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + kTokens * St::kv;
+  T* qs = vs + kTokens * St::kv;
+  T* gs = qs + kTokens * St::qg;
+  T* ps = gs + kTokens * St::qg;
+  T* dss = ps + kTokens * kScoreStride;
+  float* kp = reinterpret_cast<float*>(dss + kTokens * kScoreStride);
+
+  const Window w = find_window(tab);
+  const int C = tab.C;
+  stage<T, D>(ks, St::kv, w.L.in[1], w, C);
+  stage<T, D>(vs, St::kv, w.L.in[2], w, C);
+  stage<T, D>(qs, St::qg, w.L.in[0], w, C);
+  stage<T, D>(gs, St::qg, w.L.in[3], w, C);
+  stage_keep(kp, w);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int t = threadIdx.x & 3;
+  const int r = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  // pass 1: query rows r and r + 8
+  {
+    float p[16][4] = {};
+    rows_by_rows<D>(p, qs + r * St::qg, qs + (r + 8) * St::qg, ks);
+    masked_softmax(p, kp, tab.scale2);
+    float dp[16][4] = {};
+    rows_by_rows<D>(dp, gs + r * St::qg, gs + (r + 8) * St::qg, vs);
+    float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      d0 += p[j][0] * dp[j][0] + p[j][1] * dp[j][1];
+      d1 += p[j][2] * dp[j][2] + p[j][3] * dp[j][3];
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      d0 += __shfl_xor_sync(0xffffffffu, d0, o);
+      d1 += __shfl_xor_sync(0xffffffffu, d1, o);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool kept = kp[j * 8 + 2 * t + e] > 0.5f;
+        dp[j][e] = kept ? p[j][e] * (dp[j][e] - d0) : 0.f;
+        dp[j][2 + e] = kept ? p[j][2 + e] * (dp[j][2 + e] - d1) : 0.f;
+      }
+    store_scores(ps, r, p);
+    store_scores(dss, r, dp);
+    float dq[D / 8][4] = {};
+    scores_by_rows<D>(dq, dp, ks);
+    store_rows<T, D>(w.L.out[0], w, C, r, dq, tab.scale);
+  }
+  __syncthreads();
+
+  // pass 2: key rows r and r + 8
+  float dv[D / 8][4] = {};
+  transposed_by_rows<D>(dv, ps, gs);
+  store_rows<T, D>(w.L.out[2], w, C, r, dv, 1.f);
+  float dk[D / 8][4] = {};
+  transposed_by_rows<D>(dk, dss, qs);
+  store_rows<T, D>(w.L.out[1], w, C, r, dk, tab.scale);
+}
+
+template <typename T, int D>
+cudaError_t launch(const LevelTable& tab, int windows, int heads,
+                   cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem<T, D>();
+  static_assert(smem <= 232448, "over the 227 KB a block may use");
   auto kernel = window_attn_bwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t configured = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(B * (Hp / wh) * (Wp / ww)), (unsigned)num_heads);
-  const int threads = (S + 31) / 32 * 32;
-  const float scale = (float)(1.0 / sqrt((double)D));
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(keep),
-      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), Hp, Wp, C, wh, ww, scale);
+  if (configured != cudaSuccess) return configured;
+  kernel<<<(unsigned)(windows * heads), kThreads, smem, stream>>>(tab);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const void* keep, const void* g, void* dq, void* dk,
-                     void* dv, int B, int Hp, int Wp, int C, int num_heads,
-                     int wh, int ww, cudaStream_t stream) {
-  switch (C / num_heads) {
+cudaError_t dispatch(const LevelTable& tab, int windows, int heads,
+                     cudaStream_t stream) {
+  switch (tab.C / heads) {
     case 8:
-      return launch<T, 8>(q, k, v, keep, g, dq, dk, dv, B, Hp, Wp, C,
-                          num_heads, wh, ww, stream);
+      return launch<T, 8>(tab, windows, heads, stream);
     case 32:
-      return launch<T, 32>(q, k, v, keep, g, dq, dk, dv, B, Hp, Wp, C,
-                           num_heads, wh, ww, stream);
+      return launch<T, 32>(tab, windows, heads, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16
-// (q, k, v, g and the three gradients).  Every tensor but keep is a
-// (B, Hp, Wp, C) raster, keep is (B, Hp, Wp) float32 0/1; all on the device,
-// contiguous.  Hp % wh == 0, Wp % ww == 0, wh * ww <= 1024 and
-// C / num_heads in {8, 32}.  Returns the CUDA error of the launch
-// (0 = success).
-extern "C" int window_attn_bwd(const void* q, const void* k, const void* v,
-                               const void* keep, const void* g, void* dq,
-                               void* dk, void* dv, int dtype, int B, int Hp,
-                               int Wp, int C, int num_heads, int wh, int ww,
+// Plain C entry point, bound with ctypes.  For each of n_levels levels,
+// ptrs holds q, k, v, g, keep, dq, dk, dv (8 device pointers) and dims
+// holds (Hp, Wp, first window); windows is the total over the levels.
+// dtype: 0 = float32, 1 = bfloat16 (every tensor but keep, which is
+// float32 0/1).  Rasters are (B, Hp, Wp, C), contiguous, 16-byte aligned;
+// wh * ww = 128, C / num_heads in {8, 32}, at most 8 levels.  Returns the
+// CUDA error of the launch (0 = success).
+extern "C" int window_attn_bwd(int n_levels, void* const* ptrs,
+                               const int* dims, int windows, int dtype,
+                               int C, int num_heads, int wh, int ww,
                                void* stream) {
+  LevelTable tab;
+  if (!fill_table(tab, n_levels, ptrs, 4, 3, dims, C, num_heads, wh, ww) ||
+      windows < 1 || (long long)windows * num_heads > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, keep, g, dq, dk, dv, B, Hp, Wp, C,
-                                num_heads, wh, ww, s);
+  if (dtype == 0) return (int)dispatch<float>(tab, windows, num_heads, s);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, keep, g, dq, dk, dv, B, Hp,
-                                        Wp, C, num_heads, wh, ww, s);
+    return (int)dispatch<__nv_bfloat16>(tab, windows, num_heads, s);
   return (int)cudaErrorInvalidValue;
 }

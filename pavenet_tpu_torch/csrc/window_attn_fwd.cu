@@ -1,178 +1,129 @@
-// Window attention, forward, for Hopper (sm_90a).
+// Window attention, forward, for Hopper (sm_90a), on tensor cores; one
+// launch takes every level raster of an encoder layer.
 //
 // Replaces the TPU Pallas kernel
-// pavenet_tpu/ops/pallas/window_attn.py::window_attention (_fwd, body
-// _fwd_kernel).  For every (wh, ww) window of a (B, Hp, Wp, C) raster and
-// every head h (D = C / num_heads channels):
+// pavenet_tpu/ops/pallas/window_attn.py:173 (_fwd, body _fwd_kernel :47).
+// For every (8, 16) window of each (B, Hp, Wp, C) level raster and every
+// head h (D = C / num_heads channels):
 //
-//   s[i,j] = keep[j] ? (q_i . k_j) / sqrt(D) : -1e9
-//   out_i  = sum_j softmax_j(s[i,:]) v_j
+//   s[i,j] = keep[j] ? (q_i . k_j) / sqrt(D) : -1e9        (f32)
+//   out_i  = sum_j cast_v(softmax_j(s[i,:])) v_j            (summed in f32)
 //
 // Masked keys get exactly -1e9, not -inf: a fully masked window gives the
-// uniform average of its values (zero in the model, whose caller zeroes v at
-// padded keys), as the TPU kernel does.
+// mean of its values (zero in the model, whose caller zeroes v at padded
+// keys), as the TPU kernel does.
 //
-// What bounds it: arithmetic.  One flagship call (603 windows of 128 tokens,
-// 8 heads, D=32, f32) does 10.1 GFLOP of score and value products against
-// 316 MB of q/k/v/out traffic: 0.151 ms at the H100's 67 TFLOP/s f32 rate
-// against 0.094 ms at 3.35 TB/s.  This kernel runs plain f32 FMAs outside
-// the tensor cores, so the f32 rate is its bound.
+// What bounds it on an H100: bytes.  One flagship layer (603 windows of
+// 128 tokens over four levels, 8 heads, D = 32, f32) moves 316 MB of q, k,
+// v, keep and out: 0.094 ms at 3.35 TB/s, against 10.1 GFLOP of the two
+// products, 0.061 ms at the 3xTF32 rate (495 / 3 TFLOP/s).  In bf16 0.047
+// ms of bytes against 0.010 ms at 989 TFLOP/s.
 //
-// What this design does about it: one block per (window, head), one thread
-// per query row.  The window's k and v head slices are staged once in
-// shared memory (read row by row with neighbouring threads on neighbouring
-// channels); every thread then walks the keys in the same order, so each
-// shared-memory read is a broadcast, and keeps an online softmax (running
-// max, running sum, a D-wide accumulator) in registers.  Scores never leave
-// the SM and no window-partition copy is made: offsets come from blockIdx
-// and the raster strides.  Sums are f32; bf16 inputs are widened on load.
-// Left to later PRs: tensor cores (mma/wgmma in TF32 or bf16) for the two
-// products, several query rows per thread.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// What the design does about it:
+// - one block per (window, head), 8 warps of 16 query rows; the whole
+//   16 x 128 score tile of a warp stays in registers, so the softmax is
+//   exact (no online rescale): row max and sum come from quad shuffles;
+// - both products on tensor cores through mma.sync: float32 as 3xTF32
+//   (big = tf32(x), small = tf32(x - big), big*big + big*small +
+//   small*big, f32 sums), which keeps the f32 tolerance where one TF32
+//   product would not; bf16 as m16n8k16 with f32 sums, the weights rounded
+//   to bf16 before P V as the contract says;
+// - q, k and v head slices are staged together with 16-byte cp.async (one
+//   round trip to device memory) into rows padded so that every fragment
+//   read is free of bank conflicts (window_attn_common.cuh); the grid runs
+//   the heads of a window next to each other, so the blocks in flight read
+//   whole token rows;
+// - the level table (pointers, raster sizes, each level's first window)
+//   is the kernel's by-value argument; blockIdx.x finds its level by the
+//   prefix of first windows, so one launch covers a layer's four levels and
+//   the small levels no longer each pay a launch.
+// Left to later PRs: wgmma (64-row tiles across warps), TMA loads, several
+// heads per block to reuse the window's offsets, and double buffering
+// across windows of a persistent block.
+#include "window_attn_common.cuh"
 
 namespace {
 
-constexpr float kMasked = -1e9f;
+using namespace wattn;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Raster index (b, y, x) of token t of window w; windows are numbered
-// (b, window row, window column) in raster order.
-__device__ __forceinline__ int64_t token_index(int w, int t, int Hp, int Wp,
-                                               int wh, int ww) {
-  const int nww = Wp / ww, nwh = Hp / wh;
-  const int b = w / (nwh * nww);
-  const int rem = w - b * nwh * nww;
-  const int wi = rem / nww, wj = rem - wi * nww;
-  const int r = t / ww, c = t - r * ww;
-  return ((int64_t)b * Hp + wi * wh + r) * Wp + wj * ww + c;
+template <typename T, int D>
+constexpr size_t fwd_smem() {
+  return 3 * (size_t)kTokens * Strides<T, D>::kv * sizeof(T)
+         + kTokens * sizeof(float);
 }
 
 template <typename T, int D>
-__global__ void window_attn_fwd_kernel(const T* __restrict__ q,
-                                       const T* __restrict__ k,
-                                       const T* __restrict__ v,
-                                       const float* __restrict__ keep,
-                                       T* __restrict__ out, int Hp, int Wp,
-                                       int C, int wh, int ww, float scale) {
-  extern __shared__ float smem[];
-  const int S = wh * ww;
-  float* ks = smem;           // (S, D)
-  float* vs = ks + S * D;     // (S, D)
-  float* kp = vs + S * D;     // (S,)
-  const int w = blockIdx.x, h = blockIdx.y;
+__global__ void __launch_bounds__(kThreads)
+    window_attn_fwd_kernel(const __grid_constant__ LevelTable tab) {
+  constexpr int kS = Strides<T, D>::kv;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = qs + kTokens * kS;
+  T* vs = ks + kTokens * kS;
+  float* kp = reinterpret_cast<float*>(vs + kTokens * kS);
 
-  for (int idx = threadIdx.x; idx < S * D; idx += blockDim.x) {
-    const int t = idx / D, d = idx - t * D;
-    const int64_t off = token_index(w, t, Hp, Wp, wh, ww) * C + h * D + d;
-    ks[idx] = to_float(k[off]);
-    vs[idx] = to_float(v[off]);
-  }
-  for (int t = threadIdx.x; t < S; t += blockDim.x)
-    kp[t] = keep[token_index(w, t, Hp, Wp, wh, ww)];
+  const Window w = find_window(tab);
+  const int C = tab.C;
+  stage<T, D>(qs, kS, w.L.in[0], w, C);
+  stage<T, D>(ks, kS, w.L.in[1], w, C);
+  stage<T, D>(vs, kS, w.L.in[2], w, C);
+  stage_keep(kp, w);
+  cp_async_wait_all();
   __syncthreads();
 
-  const int i = threadIdx.x;
-  if (i >= S) return;
-  const int64_t qoff = token_index(w, i, Hp, Wp, wh, ww) * C + h * D;
-  float qi[D], acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qi[d] = to_float(q[qoff + d]);
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-  for (int j = 0; j < S; ++j) {
-    const float* kj = ks + j * D;
-    float s = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) s = fmaf(qi[d], kj[d], s);
-    s = kp[j] > 0.5f ? s * scale : kMasked;
-    if (s > m) {                      // rescale what was summed so far
-      const float c = expf(m - s);
-      l *= c;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= c;
-      m = s;
-    }
-    const float p = expf(s - m);
-    l += p;
-    const float* vj = vs + j * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vj[d], acc[d]);
-  }
-  const float inv = 1.f / l;
-#pragma unroll
-  for (int d = 0; d < D; ++d) out[qoff + d] = from_float<T>(acc[d] * inv);
+  const int r = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  float s[16][4] = {};                          // rows r and r + 8
+  rows_by_rows<D>(s, qs + r * kS, qs + (r + 8) * kS, ks);
+  masked_softmax(s, kp, tab.scale2);
+  float o[D / 8][4] = {};
+  scores_by_rows<D>(o, s, vs);
+  store_rows<T, D>(w.L.out[0], w, C, r, o, 1.f);
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* keep, void* out, int B, int Hp, int Wp, int C,
-                   int num_heads, int wh, int ww, cudaStream_t stream) {
-  const int S = wh * ww;
-  const size_t smem = (size_t)(2 * S * D + S) * sizeof(float);
+cudaError_t launch(const LevelTable& tab, int windows, int heads,
+                   cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem<T, D>();
   auto kernel = window_attn_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t configured = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(B * (Hp / wh) * (Wp / ww)), (unsigned)num_heads);
-  const int threads = (S + 31) / 32 * 32;
-  const float scale = (float)(1.0 / sqrt((double)D));
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(keep),
-      static_cast<T*>(out), Hp, Wp, C, wh, ww, scale);
+  if (configured != cudaSuccess) return configured;
+  kernel<<<(unsigned)(windows * heads), kThreads, smem, stream>>>(tab);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const void* keep, void* out, int B, int Hp, int Wp,
-                     int C, int num_heads, int wh, int ww,
+cudaError_t dispatch(const LevelTable& tab, int windows, int heads,
                      cudaStream_t stream) {
-  switch (C / num_heads) {
+  switch (tab.C / heads) {
     case 8:
-      return launch<T, 8>(q, k, v, keep, out, B, Hp, Wp, C, num_heads, wh,
-                          ww, stream);
+      return launch<T, 8>(tab, windows, heads, stream);
     case 32:
-      return launch<T, 32>(q, k, v, keep, out, B, Hp, Wp, C, num_heads, wh,
-                           ww, stream);
+      return launch<T, 32>(tab, windows, heads, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16
-// (q, k, v and out).  q, k, v, out are (B, Hp, Wp, C) rasters, keep is
-// (B, Hp, Wp) float32 0/1; all on the device, contiguous.  Hp % wh == 0,
-// Wp % ww == 0, wh * ww <= 1024 and C / num_heads in {8, 32}.
-// Returns the CUDA error of the launch (0 = success).
-extern "C" int window_attn_fwd(const void* q, const void* k, const void* v,
-                               const void* keep, void* out, int dtype, int B,
-                               int Hp, int Wp, int C, int num_heads, int wh,
-                               int ww, void* stream) {
+// Plain C entry point, bound with ctypes.  For each of n_levels levels,
+// ptrs holds q, k, v, keep, out (5 device pointers) and dims holds
+// (Hp, Wp, first window); windows is the total over the levels.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, out); keep is float32 0/1.
+// Rasters are (B, Hp, Wp, C), contiguous, 16-byte aligned; wh * ww = 128,
+// C / num_heads in {8, 32}, at most 8 levels.  Returns the CUDA error of
+// the launch (0 = success).
+extern "C" int window_attn_fwd(int n_levels, void* const* ptrs,
+                               const int* dims, int windows, int dtype,
+                               int C, int num_heads, int wh, int ww,
+                               void* stream) {
+  LevelTable tab;
+  if (!fill_table(tab, n_levels, ptrs, 3, 1, dims, C, num_heads, wh, ww) ||
+      windows < 1 || (long long)windows * num_heads > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, keep, out, B, Hp, Wp, C, num_heads,
-                                wh, ww, s);
+  if (dtype == 0) return (int)dispatch<float>(tab, windows, num_heads, s);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, keep, out, B, Hp, Wp, C,
-                                        num_heads, wh, ww, s);
+    return (int)dispatch<__nv_bfloat16>(tab, windows, num_heads, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,8 +15,10 @@ As in the JAX package:
 - dropout after the output projection, post-norm, then the FFN and a
   second norm.
 
-Attention goes through ``ops/window_attn.py`` on the raster, for every
-``impl`` (the plain version partitions into windows inside it).
+Attention goes through ``ops/window_attn.py`` on the rasters, for every
+``impl`` (the plain version partitions into windows inside it): one call
+per layer takes all pyramid levels, so the kernels launch once per layer
+and direction. Roll, pad and crop stay here, as in the JAX layer.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.window_attn import window_attention
+from ...ops.window_attn import window_attention_levels
 from .transformer import FFN, Dropout
 
 WINDOW = (8, 16)   # (wh, ww): 128 tokens
@@ -61,25 +63,36 @@ def window_unpartition(w, B, Hl, Wl, wh=WINDOW[0], ww=WINDOW[1],
     return x.reshape(B, Hl * Wl, *trail)
 
 
-def _attend_level(q, k, v, key_padding_mask, Hl, Wl, num_heads,
-                  wh=WINDOW[0], ww=WINDOW[1], shift=False, impl="auto"):
-    """One level's window attention on its raster: (B, Hl*Wl, C) q, k, v
-    (v already zeroed at padded keys) -> (B, Hl*Wl, C)."""
-    B, n, C = q.shape
-    keep = (torch.ones(B, n, dtype=torch.float32, device=q.device)
+def _attend_levels(q, k, v, key_padding_mask, spatial_shapes, num_heads,
+                   wh=WINDOW[0], ww=WINDOW[1], shift=False, impl="auto"):
+    """Window attention on every level's raster in one call: (B, N, C) q,
+    k, v over the concatenated levels (v already zeroed at padded keys) ->
+    (B, N, C)."""
+    B, N, C = q.shape
+    keep = (torch.ones(B, N, dtype=torch.float32, device=q.device)
             if key_padding_mask is None else (~key_padding_mask).float())
-    rasters = [x.reshape(B, Hl, Wl, -1) for x in (q, k, v, keep[..., None])]
-    if shift:
-        rasters = [torch.roll(x, (-(wh // 2), -(ww // 2)), dims=(1, 2))
-                   for x in rasters]
-    Hp, Wp = _padded(Hl, Wl, wh, ww)
-    rasters = [F.pad(x, (0, 0, 0, Wp - Wl, 0, Hp - Hl)) for x in rasters]
-    qr, kr, vr, keep = rasters
-    out = window_attention(qr, kr, vr, keep[..., 0], num_heads, wh, ww,
-                           impl=impl)[:, :Hl, :Wl]
-    if shift:
-        out = torch.roll(out, (wh // 2, ww // 2), dims=(1, 2))
-    return out.reshape(B, n, C)
+    levels, start = [], 0
+    for Hl, Wl in spatial_shapes:
+        sl = slice(start, start + Hl * Wl)
+        rasters = [x[:, sl].reshape(B, Hl, Wl, -1)
+                   for x in (q, k, v, keep[..., None])]
+        if shift:
+            rasters = [torch.roll(x, (-(wh // 2), -(ww // 2)), dims=(1, 2))
+                       for x in rasters]
+        Hp, Wp = _padded(Hl, Wl, wh, ww)
+        levels.append([F.pad(x, (0, 0, 0, Wp - Wl, 0, Hp - Hl))
+                       for x in rasters])
+        start += Hl * Wl
+    qs, ks, vs, keeps = zip(*levels)
+    outs = window_attention_levels(qs, ks, vs, [x[..., 0] for x in keeps],
+                                   num_heads, wh, ww, impl=impl)
+    cropped = []
+    for out, (Hl, Wl) in zip(outs, spatial_shapes):
+        out = out[:, :Hl, :Wl]
+        if shift:
+            out = torch.roll(out, (wh // 2, ww // 2), dims=(1, 2))
+        cropped.append(out.reshape(B, Hl * Wl, C))
+    return torch.cat(cropped, 1)
 
 
 class WindowedEncoderLayer(nn.Module):
@@ -108,13 +121,8 @@ class WindowedEncoderLayer(nn.Module):
         v = self.v_proj(x)
         if key_padding_mask is not None:
             v = v.masked_fill(key_padding_mask[..., None], 0.0)
-        outs, start = [], 0
-        for Hl, Wl in spatial_shapes:
-            sl = slice(start, start + Hl * Wl)
-            kpm = None if key_padding_mask is None else key_padding_mask[:, sl]
-            outs.append(_attend_level(q[:, sl], k[:, sl], v[:, sl], kpm, Hl,
-                                      Wl, self.num_heads, *WINDOW,
-                                      shift=self.shift, impl=self.impl))
-            start += Hl * Wl
-        out = self.drop(self.out_proj(torch.cat(outs, 1)))
+        out = _attend_levels(q, k, v, key_padding_mask, spatial_shapes,
+                             self.num_heads, *WINDOW, shift=self.shift,
+                             impl=self.impl)
+        out = self.drop(self.out_proj(out))
         return self.norm2(self.ffn(self.norm1(x + out)))

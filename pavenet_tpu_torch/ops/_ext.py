@@ -3,8 +3,9 @@
 Each ``.cu`` file is compiled with ``nvcc`` into a shared library with a
 plain C entry point and bound with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).  The build happens at first use, into ``build/kernels/`` at
-the root of the checkout; the library name carries a hash of the source, so
-an edited source is rebuilt and a stale library is never loaded.
+the root of the checkout; the library name carries a hash of the source and
+of the headers in ``csrc/``, so an edited source is rebuilt and a stale
+library is never loaded.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("msda_fwd", "msda_bwd", "window_attn_fwd", "window_attn_bwd")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -33,14 +34,19 @@ _ARGTYPES = {
                 + [ctypes.c_void_p],
     "msda_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                 + [ctypes.c_void_p],
-    "window_attn_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p],
-    "window_attn_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p],
+    # n_levels, the level table's pointers and dims (host arrays), windows,
+    # dtype, C, num_heads, wh, ww
+    "window_attn_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "window_attn_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 # head sizes the window-attention kernels are compiled for: the flagship's
-# 256 / 8 and the tiny debug configs' 64 / 8
+# 256 / 8 and the tiny debug configs' 64 / 8; the window is 128 tokens and
+# one launch takes at most WINDOW_MAX_LEVELS level rasters
 WINDOW_HEAD_DIMS = (8, 32)
+WINDOW_TOKENS = 128
+WINDOW_MAX_LEVELS = 8
 
 
 def _nvcc() -> str:
@@ -56,14 +62,21 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    """The library of ``csrc/<name>.cu``, named by a hash of that source and
+    of every header in ``csrc/``."""
+    sha = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    digest = sha.hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 
 def build_all(names=KERNELS) -> dict:
     """Compile every ``csrc/<name>.cu`` that is not built yet, one ``nvcc``
-    per source, all started together. Returns ``{name: seconds}`` of each
-    build that ran (0.0 for one already built)."""
+    per source, all started together; the compiler's output (with ptxas's
+    registers, shared memory and spills per kernel) is kept beside each
+    library (:func:`build_log`). Returns ``{name: seconds}`` of each build
+    that ran (0.0 for one already built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs, seconds = {}, {}
     start = time.perf_counter()
@@ -89,8 +102,16 @@ def build_all(names=KERNELS) -> dict:
             log.seek(0)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}.cu:\n{log.read()}")
+            _lib_path(name).with_suffix(".log").write_text(log.read())
         os.replace(tmp, _lib_path(name))  # atomic: no half-written library
     return seconds
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the build of ``csrc/<name>.cu`` ("" if it
+    was not built in this checkout)."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build(name: str) -> Path:
@@ -194,69 +215,109 @@ def msda_bwd(value: torch.Tensor, shapes: torch.Tensor,
     return grad_value.to(value.dtype), grad_loc, grad_attn
 
 
-def _check_window(name: str, q: torch.Tensor, num_heads: int, wh: int,
-                  ww: int, **tensors):
-    for k, t in dict(q=q, **tensors).items():
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"{name}: {k} must be on {q.device} (a CUDA "
-                             f"device), got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {k} must be contiguous")
-        want = torch.float32 if k == "keep" else q.dtype
-        if t.dtype != want:
-            raise TypeError(f"{name}: {k} must be {want}, got {t.dtype}")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: dtype {q.dtype} not supported")
-    if q.dim() != 4:
+def window_level_table(shapes, wh: int = 8, ww: int = 16):
+    """The level table of one window-attention launch: for each level's
+    ``(B, Hp, Wp)`` its ``(B, Hp, Wp, first)``, where ``first`` is the
+    launch-wide index of its first window (windows run level by level, then
+    batch, window row, window column), and the total number of windows."""
+    table, first = [], 0
+    for B, Hp, Wp in shapes:
+        if Hp % wh or Wp % ww or B * Hp * Wp == 0:
+            raise ValueError(f"raster {B}x{Hp}x{Wp} is empty or not a "
+                             f"multiple of the ({wh}, {ww}) window")
+        table.append((B, Hp, Wp, first))
+        first += B * (Hp // wh) * (Wp // ww)
+    return table, first
+
+
+def _check_window(name: str, qs, num_heads: int, wh: int, ww: int,
+                  **lists):
+    """Check the level lists of a window-attention launch; returns
+    ``(C, level table, total windows)``."""
+    n = len(qs)
+    if not 1 <= n <= WINDOW_MAX_LEVELS:
+        raise ValueError(f"{name}: {n} levels, not 1..{WINDOW_MAX_LEVELS}")
+    if wh * ww != WINDOW_TOKENS:
+        raise ValueError(f"{name}: the kernels take {WINDOW_TOKENS}-token "
+                         f"windows, not ({wh}, {ww})")
+    q0 = qs[0]
+    if q0.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {q0.dtype} not supported")
+    if q0.dim() != 4:
         raise ValueError(f"{name}: expected (B, Hp, Wp, C) rasters, got "
-                         f"{tuple(q.shape)}")
-    B, Hp, Wp, C = q.shape
-    for k, t in tensors.items():
-        want = (B, Hp, Wp) if k == "keep" else (B, Hp, Wp, C)
-        if t.shape != want:
-            raise ValueError(f"{name}: {k} {tuple(t.shape)} is not {want}")
-    if Hp % wh or Wp % ww or B * Hp * Wp == 0:
-        raise ValueError(f"{name}: raster {Hp}x{Wp} is empty or not a "
-                         f"multiple of the ({wh}, {ww}) window")
-    if wh * ww > 1024:
-        raise ValueError(f"{name}: window of {wh * ww} tokens > 1024")
+                         f"{tuple(q0.shape)}")
+    C = q0.shape[3]
     if C % num_heads or C // num_heads not in WINDOW_HEAD_DIMS:
         raise ValueError(f"{name}: head size C / num_heads = {C} / "
                          f"{num_heads} not in {WINDOW_HEAD_DIMS}")
-    return B, Hp, Wp, C
+    for key, ts in lists.items():
+        if len(ts) != n:
+            raise ValueError(f"{name}: {len(ts)} {key} for {n} levels")
+    # one launch checks up to 8 levels x 8 tensors on the host, so these are
+    # the cheap properties (get_device, not device)
+    device = q0.get_device()
+    shapes = []
+    for level, q in enumerate(qs):
+        shape = q.shape
+        if len(shape) != 4 or shape[3] != C:
+            raise ValueError(f"{name}: level {level} q {tuple(shape)} is "
+                             f"not a (B, Hp, Wp, {C}) raster")
+        shapes.append(shape[:3])
+        for key, t in (("q", q), *((k, ts[level]) for k, ts in
+                                   lists.items())):
+            if device < 0 or t.get_device() != device:
+                raise ValueError(f"{name}: {key} must be on {q0.device} (a "
+                                 f"CUDA device), got {t.device}")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"{name}: {key} must be contiguous and "
+                                 "16-byte aligned")
+            want = torch.float32 if key == "keep" else q0.dtype
+            if t.dtype != want:
+                raise TypeError(f"{name}: {key} must be {want}, got "
+                                f"{t.dtype}")
+            if t.shape != (shapes[-1] if key == "keep" else shape):
+                raise ValueError(f"{name}: level {level} {key} "
+                                 f"{tuple(t.shape)} is not the raster's")
+    table, windows = window_level_table(shapes, wh, ww)
+    return C, table, windows
 
 
-def window_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    keep: torch.Tensor, num_heads: int, wh: int = 8,
-                    ww: int = 16) -> torch.Tensor:
-    """Launch ``csrc/window_attn_fwd.cu`` on the current stream.
+def _window_launch(name, qs, per_level, table, windows, C, num_heads, wh,
+                   ww):
+    ptrs = [t.data_ptr() for tensors in per_level for t in tensors]
+    dims = [d for _, Hp, Wp, first in table for d in (Hp, Wp, first)]
+    _launch(name, qs[0].device, len(qs), (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(dims))(*dims), windows,
+            _DTYPE_CODES[qs[0].dtype], C, num_heads, wh, ww)
 
-    q, k, v ``(B, Hp, Wp, C)`` float32 or bfloat16 (one dtype), keep
-    ``(B, Hp, Wp)`` float32 0/1; all on one CUDA device and contiguous.
-    Returns ``(B, Hp, Wp, C)`` in q's dtype.
+
+def window_attn_fwd(qs, ks, vs, keeps, num_heads: int, wh: int = 8,
+                    ww: int = 16):
+    """Launch ``csrc/window_attn_fwd.cu`` once over every level raster.
+
+    qs, ks, vs: per level ``(B, Hp, Wp, C)`` float32 or bfloat16 (one dtype
+    and C for all); keeps: per level ``(B, Hp, Wp)`` float32 0/1; all on one
+    CUDA device, contiguous. Returns the per-level outputs in q's dtype.
     """
-    B, Hp, Wp, C = _check_window("window_attn_fwd", q, num_heads, wh, ww,
-                                 k=k, v=v, keep=keep)
-    out = torch.empty_like(q)
-    _launch("window_attn_fwd", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), keep.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, Hp, Wp, C, num_heads, wh, ww)
-    return out
+    C, table, windows = _check_window("window_attn_fwd", qs, num_heads, wh,
+                                      ww, k=ks, v=vs, keep=keeps)
+    outs = [torch.empty_like(q) for q in qs]
+    _window_launch("window_attn_fwd", qs, zip(qs, ks, vs, keeps, outs),
+                   table, windows, C, num_heads, wh, ww)
+    return outs
 
 
-def window_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    keep: torch.Tensor, grad_out: torch.Tensor,
-                    num_heads: int, wh: int = 8, ww: int = 16):
-    """Launch ``csrc/window_attn_bwd.cu`` on the current stream.
+def window_attn_bwd(qs, ks, vs, keeps, gs, num_heads: int, wh: int = 8,
+                    ww: int = 16):
+    """Launch ``csrc/window_attn_bwd.cu`` once over every level raster.
 
-    Inputs as ``window_attn_fwd`` plus grad_out ``(B, Hp, Wp, C)`` in q's
-    dtype. Returns ``(dq, dk, dv)`` in q's dtype.
+    Inputs as ``window_attn_fwd`` plus the output gradients gs in q's
+    dtype. Returns ``(dqs, dks, dvs)``, per-level lists in q's dtype.
     """
-    B, Hp, Wp, C = _check_window("window_attn_bwd", q, num_heads, wh, ww,
-                                 k=k, v=v, keep=keep, grad_out=grad_out)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    _launch("window_attn_bwd", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), keep.data_ptr(), grad_out.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, Hp, Wp, C, num_heads, wh, ww)
-    return dq, dk, dv
+    C, table, windows = _check_window("window_attn_bwd", qs, num_heads, wh,
+                                      ww, k=ks, v=vs, keep=keeps, g=gs)
+    dqs, dks, dvs = ([torch.empty_like(q) for q in qs] for _ in range(3))
+    _window_launch("window_attn_bwd", qs,
+                   zip(qs, ks, vs, gs, keeps, dqs, dks, dvs), table, windows,
+                   C, num_heads, wh, ww)
+    return dqs, dks, dvs

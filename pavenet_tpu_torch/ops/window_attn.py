@@ -13,7 +13,9 @@ Contract (as ``pavenet_tpu/ops/pallas/window_attn.py::window_attention``):
 ``window_attention_torch`` is the plain PyTorch version (its gradient is
 autograd through it). The hand-written CUDA kernels are
 ``csrc/window_attn_fwd.cu`` and ``csrc/window_attn_bwd.cu``, joined by
-``WindowAttnFunction``; ``window_attention`` dispatches by ``impl``.
+``WindowAttnFunction``; each launch takes a list of level rasters (one
+encoder layer's pyramid levels). ``window_attention_levels`` dispatches a
+layer's levels by ``impl``; ``window_attention`` is its one-level case.
 """
 from __future__ import annotations
 
@@ -60,51 +62,76 @@ def window_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class WindowAttnFunction(torch.autograd.Function):
-    """Window attention through the CUDA kernels: forward
-    ``csrc/window_attn_fwd.cu``, backward ``csrc/window_attn_bwd.cu``. Saves
-    q, k, v and keep; the backward kernel recomputes the softmax per window
-    instead of keeping the scores."""
+    """Window attention over a list of level rasters through the CUDA
+    kernels, one launch per direction: forward ``csrc/window_attn_fwd.cu``,
+    backward ``csrc/window_attn_bwd.cu``. Called as ``apply(n, num_heads,
+    wh, ww, *qs, *ks, *vs, *keeps)`` with ``n`` levels; returns the ``n``
+    outputs. Saves q, k, v and keep; the backward kernel recomputes the
+    softmax per window instead of keeping the scores."""
 
     @staticmethod
-    def forward(ctx, q, k, v, keep, num_heads, wh, ww):
-        ctx.save_for_backward(q, k, v, keep)
-        ctx.window = (num_heads, wh, ww)
-        out = _ext.window_attn_fwd(q, k, v, keep, num_heads, wh, ww)
-        window_attention.launches += 1
-        return out
+    def forward(ctx, n, num_heads, wh, ww, *tensors):
+        qs, ks, vs, keeps = (tensors[i * n:(i + 1) * n] for i in range(4))
+        ctx.save_for_backward(*tensors)
+        ctx.window = (n, num_heads, wh, ww)
+        outs = _ext.window_attn_fwd(qs, ks, vs, keeps, num_heads, wh, ww)
+        window_attention_levels.launches += 1
+        return tuple(outs)
 
     @staticmethod
-    def backward(ctx, grad_out):
-        q, k, v, keep = ctx.saved_tensors
-        dq, dk, dv = _ext.window_attn_bwd(
-            q, k, v, keep, grad_out.to(q.dtype).contiguous(), *ctx.window)
-        window_attention.backward_launches += 1
-        return dq, dk, dv, None, None, None, None
+    def backward(ctx, *grads):
+        n, num_heads, wh, ww = ctx.window
+        tensors = ctx.saved_tensors
+        qs, ks, vs, keeps = (tensors[i * n:(i + 1) * n] for i in range(4))
+        gs = [g.to(q.dtype).contiguous() for g, q in zip(grads, qs)]
+        dqs, dks, dvs = _ext.window_attn_bwd(qs, ks, vs, keeps, gs,
+                                             num_heads, wh, ww)
+        window_attention_levels.backward_launches += 1
+        return (None,) * 4 + (*dqs, *dks, *dvs) + (None,) * n
+
+
+def window_attention_levels(qs, ks, vs, keeps, num_heads: int, wh: int = 8,
+                            ww: int = 16, impl: str = "auto") -> list:
+    """Window attention over the level rasters of one layer: per level
+    ``(B, Hp, Wp, C)`` q, k, v and ``(B, Hp, Wp)`` keep, as
+    :func:`window_attention_torch` takes them; returns the per-level
+    outputs.
+
+    ``impl`` in {'auto', 'torch', 'cuda'} or the JAX package's names for
+    them, 'xla' (plain) and 'pallas' (kernel). 'auto' is 'cuda' for CUDA
+    tensors and 'torch' for CPU ones. 'torch' loops over the levels with the
+    plain version; 'cuda' runs ``WindowAttnFunction`` (one forward and one
+    backward launch for all levels) or raises; it never falls back.
+    ``window_attention_levels.launches`` and ``.backward_launches`` count
+    the kernel launches.
+    """
+    if not len(qs) == len(ks) == len(vs) == len(keeps) > 0:
+        raise ValueError(f"level lists of lengths {len(qs)}, {len(ks)}, "
+                         f"{len(vs)}, {len(keeps)}")
+    if impl == "auto":
+        impl = "cuda" if qs[0].is_cuda else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown window attention impl {impl!r}")
+    if IMPLS[impl] == "torch":
+        return [window_attention_torch(q, k, v, keep, num_heads, wh, ww)
+                for q, k, v, keep in zip(qs, ks, vs, keeps)]
+    if not all(t.is_cuda for t in (*qs, *ks, *vs, *keeps)):
+        raise ValueError(f"impl={impl!r} needs CUDA tensors; got "
+                         f"{qs[0].device}")
+    return list(WindowAttnFunction.apply(
+        len(qs), num_heads, wh, ww, *(x.contiguous() for x in qs),
+        *(x.contiguous() for x in ks), *(x.contiguous() for x in vs),
+        *(x.float().contiguous() for x in keeps)))
+
+
+window_attention_levels.launches = 0
+window_attention_levels.backward_launches = 0
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      keep: torch.Tensor, num_heads: int, wh: int = 8,
                      ww: int = 16, impl: str = "auto") -> torch.Tensor:
-    """Dispatch window attention; ``impl`` in {'auto', 'torch', 'cuda'} or
-    the JAX package's names for them, 'xla' (plain) and 'pallas' (kernel).
-
-    'auto' is 'cuda' for a CUDA ``q`` and 'torch' for a CPU one. 'cuda'
-    runs ``WindowAttnFunction`` (the forward and backward kernels) or
-    raises; it never falls back. ``window_attention.launches`` and
-    ``window_attention.backward_launches`` count the kernel launches.
-    """
-    if impl == "auto":
-        impl = "cuda" if q.is_cuda else "torch"
-    if impl not in IMPLS:
-        raise ValueError(f"unknown window attention impl {impl!r}")
-    if IMPLS[impl] == "torch":
-        return window_attention_torch(q, k, v, keep, num_heads, wh, ww)
-    if not q.is_cuda:
-        raise ValueError(f"impl={impl!r} needs CUDA tensors; got {q.device}")
-    return WindowAttnFunction.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(),
-        keep.float().contiguous(), num_heads, wh, ww)
-
-
-window_attention.launches = 0
-window_attention.backward_launches = 0
+    """One raster: :func:`window_attention_levels` on a single level (the
+    JAX package's ``window_attention`` call)."""
+    return window_attention_levels([q], [k], [v], [keep], num_heads, wh, ww,
+                                   impl)[0]

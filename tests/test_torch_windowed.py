@@ -118,6 +118,39 @@ def test_encoder_layer_matches_jax(shift, masked):
                                    atol=3e-4, rtol=1e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("shift", [False, True])
+def test_encoder_layer_attends_all_levels_in_one_call(shift, monkeypatch):
+    """One window-attention call per layer over the padded level rasters
+    (one kernel launch each way on the card), equal to one call per
+    level."""
+    calls = []
+    real = twin.window_attention_levels
+
+    def spy(qs, *args, **kw):
+        calls.append([tuple(q.shape) for q in qs])
+        return real(qs, *args, **kw)
+
+    monkeypatch.setattr(twin, "window_attention_levels", spy)
+    layer = twin.WindowedEncoderLayer(embed_dims=32, num_heads=4,
+                                      feedforward_channels=64, dropout=0.0,
+                                      shift=shift, impl="torch")
+    x, pos, mask = _layer_inputs()
+    layer(t(x), t(pos), None, SHAPES, t(mask))
+    assert calls == [[(2, 16, 32, 32), (2, 8, 16, 32)]]
+
+    q, k, v = (t(a) for a in np.random.RandomState(1).randn(3, *x.shape)
+               .astype(np.float32))
+    got = twin._attend_levels(q, k, v, t(mask), SHAPES, 4, shift=shift)
+    per_level, start = [], 0
+    for Hl, Wl in SHAPES:
+        sl = slice(start, start + Hl * Wl)
+        per_level.append(twin._attend_levels(
+            q[:, sl], k[:, sl], v[:, sl], t(mask)[:, sl], [(Hl, Wl)], 4,
+            shift=shift))
+        start += Hl * Wl
+    torch.testing.assert_close(got, torch.cat(per_level, 1), rtol=0, atol=0)
+
+
 # ----------------------------------------------------------------------
 # the tiny windowed model: serving and one train step
 # ----------------------------------------------------------------------
