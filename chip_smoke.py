@@ -4,6 +4,7 @@ once on one CUDA card: the flagship (deformable encoder) and its windowed-
 encoder variant.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parent DIR   # only phases 1-3 and the comparison
 
 Phases (one printed line each or more; any failure raises and exits
 non-zero):
@@ -12,14 +13,26 @@ non-zero):
 2. build:  compiles every ``csrc/*.cu`` (msda forward and backward, window
    attention forward and backward) with nvcc, in parallel, and prints each
    build time and ptxas's registers, spills and shared memory per kernel.
-3. msda forward kernel against its plain PyTorch version at the main-path
+3. capture: the inputs of the 11 msda calls of one flagship
+   ``forward_test`` (seed 0, a synthetic clip in the 800x1344 bucket), run
+   on the plain path. With ``--parent DIR`` (a checkout of an earlier
+   commit) the run then times that commit's msda kernels against this
+   tree's on the encoder call, in-model and uniform-random, and stops.
+4. msda forward kernel against its plain PyTorch version at the main-path
    shapes (encoder, pose decoder, serving joint decoder Q=300, train joint
-   decoder Q=450), value in f32 and bf16, plus edge levels (1-row, 1-column,
-   1x1); times from CUDA events, median of 20.
-4. msda backward kernel against autograd of the plain version at the
+   decoder Q=450) on uniform-random inputs, plus edge levels (1-row,
+   1-column, 1x1), and on the 11 captured calls; value in f32 and bf16;
+   times from CUDA events, median of 20.
+5. msda backward kernel against autograd of the plain version at the
    encoder, pose decoder and train joint decoder shapes and the edge
-   levels, f32 and bf16; backward times of both.
-5. window attention: the forward and backward kernels, one launch over an
+   levels, and on the captured calls (g seeded), f32 and bf16; backward
+   times of both.
+6. msda probes, at the encoder call in-model and random, f32 and bf16:
+   each kernel, its empty-body twin, the forward without corner loads, the
+   backward without grad_value reductions (all, shared-table, direct) and
+   without per-tap sums, each kernel with nothing staged, and the
+   wrapper's host checks per call.
+7. window attention: the forward and backward kernels, one launch over an
    encoder layer's level rasters, against the plain version and its
    autograd level by level: the four flagship levels (B=3, C=256, 8 heads)
    unshifted and shifted, with bucket padding and one fully masked window
@@ -27,23 +40,23 @@ non-zero):
    f32 and bf16. Times per layer of kernel, plain (a loop over the levels),
    ``scaled_dot_product_attention`` on the partitioned layout (its level
    calls in turn; timed only) and the bound; then a per-level breakdown.
-6. flagship serve: ``init_detector`` (random weights from a seed) and
+8. flagship serve: ``init_detector`` (random weights from a seed) and
    ``inference_detector`` on 3 synthetic 720x1280 clips (800x1344 bucket):
    shapes, finiteness, exactly 11 msda launches per clip; then
    ``impl="cuda"`` against ``impl="torch"`` with TF32 off (keypoints within
    1e-2 px, keep equal).
-7. flagship train: ``init_trainer``, 8 mini-steps of
+9. flagship train: ``init_trainer``, 8 mini-steps of
    ``dummy_clip_batch(train=True)`` at 800x1344, B=1, 30 GT slots, which is
    one applied update: finite losses, exactly 11+11 msda launches per
    mini-step, frozen parameters unchanged, every other parameter with a
    gradient changed; ms/step, host matching share, peak memory; then one
    mini-step cuda against torch on the weights as initialised (same
    matches, losses within 1e-4, gradient norm within 1e-3).
-8. windowed serve: phase 6 on the windowed config, 6 window-attention
+10. windowed serve: phase 8 on the windowed config, 6 window-attention
    (one per encoder layer, over its 4 levels) and 5 msda launches per clip.
-9. windowed train: phase 7 on the windowed config, 6+6 window-attention
+11. windowed train: phase 9 on the windowed config, 6+6 window-attention
    and 5+5 msda launches per mini-step.
-10. distill: the flagship teacher and the windowed student
+12. distill: the flagship teacher and the windowed student
    (``create_distill_state``), 4 steps at 800x1344, B=1: exactly 6 msda
    forward and 6+6 window-attention launches per step, finite MSE, every
    entry outside the encoder bit-identical to the teacher's, the encoder
@@ -89,6 +102,10 @@ BF16_FLOPS = 989e12
 # forward 4 corner FMAs + the weighted sum; backward the bilinear value,
 # its x and y derivatives, three dot products and four scaled atomics
 FWD_FLOPS, BWD_FLOPS = 10, 34
+# msda kernel vs plain: max abs error within these fractions of the plain
+# version's max |out| (|grad|), f32 and bf16
+MSDA_FWD_TOL = (("float32", 1e-5), ("bfloat16", 1e-2))
+MSDA_BWD_TOL = (("float32", 1e-4), ("bfloat16", 2e-2))
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -160,87 +177,309 @@ def kernel_cases():
             ("edge_levels", 2, EDGE_LEVELS, 7, 2, 15, 4)]
 
 
-def check_forward(ms_deform_attn, ms_deform_attn_torch):
-    """Forward kernel vs plain; returns per-case records."""
+def forward_record(case, v, levels, loc, attn, rel_tol, ms_deform_attn,
+                   ms_deform_attn_torch):
+    """One forward case: kernel vs plain at ``rel_tol`` of max|out|, both
+    timed, with the bound."""
+    import torch
+    got = ms_deform_attn(v, levels, loc, attn, impl="cuda").float()
+    torch.cuda.synchronize()
+    want = ms_deform_attn_torch(v.float(), levels, loc, attn)
+    err = (got - want).abs().max().item()
+    tol = rel_tol * want.abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"msda fwd {case} {v.dtype}: max abs err {err} "
+                             f"> {tol}")
+    bound_ms, bound_by = msda_bound(False, v, levels, loc)
+    B, _, H, D = v.shape
+    _, Q, _, L, P, _ = loc.shape
+    rec = dict(case=case, dtype=str(v.dtype).replace("torch.", ""), B=B,
+               Q=Q, H=H, L=L, P=P, D=D, max_abs_err=err, tol=tol,
+               ms=cuda_ms(lambda: ms_deform_attn(v, levels, loc, attn,
+                                                 impl="cuda")),
+               plain_ms=cuda_ms(lambda: ms_deform_attn(v, levels, loc, attn,
+                                                       impl="torch")),
+               bound_ms=bound_ms, bound_by=bound_by)
+    print("kernel fwd", json.dumps(rec), flush=True)
+    return rec
+
+
+def check_forward(ms_deform_attn, ms_deform_attn_torch, captured):
+    """Forward kernel vs plain on uniform-random inputs at each main-path
+    shape and on the captured in-model calls, f32 and bf16; returns
+    per-case records."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = []
     for name, B, levels, Q, H, P, D in kernel_cases():
-        for dtype, rel_tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-            v, loc, attn = msda_inputs(gen, B, levels, Q, H, P, D, dtype)
-            got = ms_deform_attn(v, levels, loc, attn, impl="cuda").float()
-            torch.cuda.synchronize()
-            want = ms_deform_attn_torch(v.float(), levels, loc, attn)
-            err = (got - want).abs().max().item()
-            tol = rel_tol * want.abs().max().item()
-            if not err <= tol:
-                raise AssertionError(f"msda fwd {name} {dtype}: max abs err "
-                                     f"{err} > {tol}")
-            ms = cuda_ms(lambda: ms_deform_attn(v, levels, loc, attn,
-                                                impl="cuda"))
-            plain_ms = cuda_ms(lambda: ms_deform_attn(v, levels, loc, attn,
-                                                      impl="torch"))
-            bound_ms, bound_by = msda_bound(False, v, levels, loc)
-            rec = dict(case=name, dtype=str(dtype).replace("torch.", ""),
-                       B=B, Q=Q, H=H, L=len(levels), P=P, D=D,
-                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
-            print("kernel fwd", json.dumps(rec), flush=True)
-            records.append(rec)
+        for dtype, rel_tol in MSDA_FWD_TOL:
+            v, loc, attn = msda_inputs(gen, B, levels, Q, H, P, D,
+                                       getattr(torch, dtype))
+            records.append(forward_record(name, v, levels, loc, attn,
+                                          rel_tol, ms_deform_attn,
+                                          ms_deform_attn_torch))
+    for name, v, levels, loc, attn in captured:
+        for dtype, rel_tol in MSDA_FWD_TOL:
+            records.append(forward_record(name, v.to(getattr(torch, dtype)),
+                                          levels, loc, attn, rel_tol,
+                                          ms_deform_attn,
+                                          ms_deform_attn_torch))
     return records
 
 
-def check_backward(ext, ms_deform_attn_torch):
-    """Backward kernel vs autograd of the plain version; grad_loc is compared
-    away from pixel boundaries (within 1e-3 px of an integer coordinate the
+def backward_record(case, ext, v, levels, loc, attn, g, rel_tol,
+                    ms_deform_attn_torch):
+    """One backward case: kernel vs autograd of the plain version at
+    ``rel_tol`` of each gradient's max; grad_loc is compared away from
+    pixel boundaries (within 1e-3 px of an integer coordinate the
     derivative jumps, and the two versions round the coordinate
-    differently). Returns per-case records."""
+    differently)."""
+    import torch
+    got = ext.msda_bwd(v, levels, loc, attn, g)
+    torch.cuda.synchronize()
+    inputs = [t.float().requires_grad_() for t in (v, loc, attn)]
+    out = ms_deform_attn_torch(inputs[0], levels, *inputs[1:])
+    want = torch.autograd.grad(out, inputs, g, retain_graph=True)
+    x, y, _ = pixel_coords(loc, levels)
+    smooth = (((x - x.round()).abs() > 1e-3)
+              & ((y - y.round()).abs() > 1e-3))[..., None]
+    errs = {}
+    for k, a, b in zip(("value", "loc", "attn"), got, want):
+        diff = (a.float() - b).abs()
+        if k == "loc":
+            diff = diff * smooth
+        tol = rel_tol * b.abs().max().item()
+        errs[k] = diff.max().item()
+        if not errs[k] <= tol:
+            raise AssertionError(f"msda bwd {case} {v.dtype} grad_{k}: max "
+                                 f"abs err {errs[k]} > {tol}")
+    bound_ms, bound_by = msda_bound(True, v, levels, loc)
+    B, _, H, D = v.shape
+    _, Q, _, L, P, _ = loc.shape
+    rec = dict(case=case, dtype=str(v.dtype).replace("torch.", ""), B=B,
+               Q=Q, H=H, L=L, P=P, D=D, max_abs_err=max(errs.values()),
+               errs=errs, rel_tol=rel_tol,
+               ms=cuda_ms(lambda: ext.msda_bwd(v, levels, loc, attn, g)),
+               plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                   out, inputs, g, retain_graph=True)),
+               bound_ms=bound_ms, bound_by=bound_by,
+               loc_taps_near_boundary=int((~smooth).sum().item()))
+    print("kernel bwd", json.dumps(rec), flush=True)
+    return rec
+
+
+def check_backward(ext, ms_deform_attn_torch, captured):
+    """Backward kernel vs autograd of the plain version on uniform-random
+    inputs at the main-path shapes that train and on the captured in-model
+    calls (g from a seeded generator), f32 and bf16; returns per-case
+    records."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(1)
     records = []
     for name, B, levels, Q, H, P, D in kernel_cases():
         if name == "joint_decoder":       # serving only: no backward
             continue
-        L = len(levels)
+        for dtype, rel_tol in MSDA_BWD_TOL:
+            v, loc, attn = msda_inputs(gen, B, levels, Q, H, P, D,
+                                       getattr(torch, dtype))
+            g = torch.randn(B, Q, H * D, device="cuda", generator=gen)
+            records.append(backward_record(name, ext, v, levels, loc, attn,
+                                           g, rel_tol, ms_deform_attn_torch))
+    for name, v, levels, loc, attn in captured:
+        B, _, H, D = v.shape
+        g = torch.randn(B, loc.shape[1], H * D, device="cuda", generator=gen)
+        for dtype, rel_tol in MSDA_BWD_TOL:
+            records.append(backward_record(name, ext,
+                                           v.to(getattr(torch, dtype)),
+                                           levels, loc, attn, g, rel_tol,
+                                           ms_deform_attn_torch))
+    return records
+
+
+def capture_in_model():
+    """The inputs of every msda call of one flagship ``forward_test`` (seed
+    0, the first timed synthetic clip in the 800x1344 bucket), run on the
+    plain path so that no kernel takes part: ``[(name, value, levels, loc,
+    attn)]``, named encoder0-5, pose_decoder0-2, joint_decoder0-1 in call
+    order."""
+    import torch
+    from pavenet_tpu_torch.apis import init_detector
+    from pavenet_tpu_torch.apis.inference import host_batch
+    from pavenet_tpu_torch.models.attention import deformable
+
+    model = init_detector(str(ROOT / CONFIG), device="cuda", seed=0,
+                          impl="torch")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in host_batch(synthetic_clips()[1], 3,
+                                    (1333, 800)).items()}
+    calls, dispatch = [], deformable.ms_deform_attn
+
+    def record(value, shapes, loc, attn, **kw):
+        calls.append((value.detach().clone(), tuple(map(tuple, shapes)),
+                      loc.detach().float().clone(),
+                      attn.detach().float().clone()))
+        return dispatch(value, shapes, loc, attn, **kw)
+
+    deformable.ms_deform_attn = record
+    try:
+        with torch.no_grad():
+            model.forward_test(batch)
+    finally:
+        deformable.ms_deform_attn = dispatch
+    if len(calls) != CALLS_PER_CLIP:
+        raise AssertionError(f"{len(calls)} msda calls in one forward_test")
+    captured, seen = [], {}
+    for v, levels, loc, attn in calls:
+        kind = ("encoder" if loc.shape[1] == v.shape[1] else
+                "pose_decoder" if loc.shape[4] == 15 else "joint_decoder")
+        captured.append((f"{kind}{seen.get(kind, 0)}", v, levels, loc, attn))
+        seen[kind] = seen.get(kind, 0) + 1
+    del model
+    torch.cuda.empty_cache()
+    return captured
+
+
+def probe_inputs(captured):
+    """The encoder calls the probes and the parent comparison time: the
+    first captured encoder call and the uniform-random encoder case of the
+    kernel checks (the same generator seeds), f32, each as ``((v, loc,
+    attn), (v, loc, attn, g), levels)``, forward and backward inputs."""
+    import torch
+    _, B, levels, Q, H, P, D = kernel_cases()[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fwd = msda_inputs(gen, B, levels, Q, H, P, D, torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bwd = msda_inputs(gen, B, levels, Q, H, P, D, torch.float32)
+    g = torch.randn(B, Q, H * D, device="cuda", generator=gen)
+    _, v, in_levels, loc, attn = captured[0]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    g_in = torch.randn(B, Q, H * D, device="cuda", generator=gen)
+    return {"in_model": ((v, loc, attn), (v, loc, attn, g_in), in_levels),
+            "random": (fwd, (*bwd, g), levels)}
+
+
+def check_probes(ext, captured):
+    """What bounds each msda kernel at the encoder call, in-model and
+    random, f32 and bf16: the kernel through its C entry (plan as the
+    wrapper makes it), its empty-body twin (same arguments and grid: the
+    launch and operand floor), the forward without its corner loads, the
+    backward without its grad_value reductions (all of them, those into
+    the shared table, those made directly) and without its per-tap sums,
+    and the kernel with nothing staged in shared memory; plus the
+    wrapper's host checks and plan per call. The ablation entry points are
+    wrong on purpose and only this phase calls them. Returns records."""
+    import ctypes
+    import torch
+    fwd_lib, bwd_lib = ext._load("msda_fwd"), ext._load("msda_bwd")
+    for lib, name in ((fwd_lib, "msda_fwd"), (bwd_lib, "msda_bwd")):
+        fn = getattr(lib, f"{name}_ablate")
+        fn.argtypes = ext._ARGTYPES[name][:-1] + [ctypes.c_int,
+                                                  ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+    def timed(fn, *args):
+        def run():
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+        return cuda_ms(run)
+
+    records = []
+    for inputs, (fwd_in, bwd_in, levels) in probe_inputs(captured).items():
+        for dtype in (torch.float32, torch.bfloat16):
+            v, loc, attn = fwd_in
+            v = v.to(dtype)
+            B, _, H, D = v.shape
+            out = torch.empty(B, loc.shape[1], H * D, dtype=dtype,
+                              device="cuda")
+            ptrs = [t.data_ptr() for t in (v, loc, attn, out)]
+            args = ext.msda_args("msda_fwd", v, levels, loc, attn)
+            bare = ext.msda_args("msda_fwd", v, levels, loc, attn,
+                                 smem_bytes=0)
+            reps = 200
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                ext.msda_args("msda_fwd", v, levels, loc, attn)
+            host_us = (time.perf_counter() - t0) / reps * 1e6
+            rec = dict(inputs=inputs, dtype=str(dtype).replace("torch.", ""),
+                       fwd_ms=timed(fwd_lib.msda_fwd, *ptrs, *args),
+                       fwd_empty_ms=timed(fwd_lib.msda_fwd_ablate, *ptrs,
+                                          *args, 1),
+                       fwd_no_loads_ms=timed(fwd_lib.msda_fwd_ablate, *ptrs,
+                                             *args, 2),
+                       fwd_unstaged_ms=timed(fwd_lib.msda_fwd, *ptrs, *bare),
+                       fwd_host_us=host_us)
+            v, loc, attn, g = bwd_in
+            v = v.to(dtype)
+            grads = [torch.zeros(v.shape, device="cuda"),
+                     torch.empty_like(loc), torch.empty_like(attn)]
+            ptrs = [t.data_ptr() for t in (v, loc, attn, g, *grads)]
+            args = ext.msda_args("msda_bwd", v, levels, loc, attn,
+                                 backward=True)
+            bare = ext.msda_args("msda_bwd", v, levels, loc, attn,
+                                 backward=True, smem_bytes=0)
+            rec.update(bwd_ms=timed(bwd_lib.msda_bwd, *ptrs, *args),
+                       bwd_empty_ms=timed(bwd_lib.msda_bwd_ablate, *ptrs,
+                                          *args, 1),
+                       bwd_no_scatter_ms=timed(bwd_lib.msda_bwd_ablate,
+                                               *ptrs, *args, 3),
+                       bwd_no_shared_ms=timed(bwd_lib.msda_bwd_ablate,
+                                              *ptrs, *args, 5),
+                       bwd_no_direct_ms=timed(bwd_lib.msda_bwd_ablate,
+                                              *ptrs, *args, 6),
+                       bwd_no_sums_ms=timed(bwd_lib.msda_bwd_ablate, *ptrs,
+                                            *args, 4),
+                       bwd_unstaged_ms=timed(bwd_lib.msda_bwd, *ptrs, *bare))
+            print("probe", json.dumps(rec), flush=True)
+            records.append(rec)
+    return records
+
+
+def compare_parent(ext, parent, captured):
+    """An earlier commit's msda kernels (built from ``parent``'s own
+    ``csrc/`` by its own loader, whose wrappers take the level table as
+    (L, 2) shapes and (L,) level-start int32 tensors on the card) against
+    this tree's on the same encoder inputs, in turns: parent, this, this,
+    parent; wrappers called directly, f32. Returns records."""
+    import importlib.util
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "parent_ext", Path(parent) / "pavenet_tpu_torch/ops/_ext.py")
+    old = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old)
+    for name, seconds in old.build_all(("msda_fwd", "msda_bwd")).items():
+        print(f"build: parent csrc/{name}.cu in {seconds:.2f} s", flush=True)
+    records = []
+    for inputs, (fwd_in, bwd_in, levels) in probe_inputs(captured).items():
         starts = [0]
         for h, w in levels[:-1]:
             starts.append(starts[-1] + h * w)
         shapes = torch.tensor(levels, dtype=torch.int32, device="cuda")
         level_start = torch.tensor(starts, dtype=torch.int32, device="cuda")
-        for dtype, rel_tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            v, loc, attn = msda_inputs(gen, B, levels, Q, H, P, D, dtype)
-            g = torch.randn(B, Q, H * D, device="cuda", generator=gen)
-            got = ext.msda_bwd(v, shapes, level_start, loc, attn, g)
+        v, loc, attn = fwd_in
+        runs = {"fwd": (lambda: old.msda_fwd(v, shapes, level_start, loc,
+                                             attn),
+                        lambda: ext.msda_fwd(v, levels, loc, attn))}
+        bv, bloc, battn, g = bwd_in
+        runs["bwd"] = (lambda: old.msda_bwd(bv, shapes, level_start, bloc,
+                                            battn, g),
+                       lambda: ext.msda_bwd(bv, levels, bloc, battn, g))
+        rec = dict(inputs=inputs, dtype="float32")
+        for key, (parent_fn, this_fn) in runs.items():
+            a, b = parent_fn(), this_fn()
             torch.cuda.synchronize()
-            inputs = [t.float().requires_grad_() for t in (v, loc, attn)]
-            out = ms_deform_attn_torch(inputs[0], levels, *inputs[1:])
-            want = torch.autograd.grad(out, inputs, g, retain_graph=True)
-            x, y, _ = pixel_coords(loc, levels)
-            smooth = (((x - x.round()).abs() > 1e-3)
-                      & ((y - y.round()).abs() > 1e-3))[..., None]
-            errs = {}
-            for k, a, b in zip(("value", "loc", "attn"), got, want):
-                diff = (a.float() - b).abs()
-                if k == "loc":
-                    diff = diff * smooth
-                tol = rel_tol * b.abs().max().item()
-                errs[k] = diff.max().item()
-                if not errs[k] <= tol:
-                    raise AssertionError(f"msda bwd {name} {dtype} grad_{k}:"
-                                         f" max abs err {errs[k]} > {tol}")
-            ms = cuda_ms(lambda: ext.msda_bwd(v, shapes, level_start, loc,
-                                              attn, g))
-            plain_ms = cuda_ms(lambda: torch.autograd.grad(
-                out, inputs, g, retain_graph=True))
-            bound_ms, bound_by = msda_bound(True, v, levels, loc)
-            rec = dict(case=name, dtype=str(dtype).replace("torch.", ""),
-                       B=B, Q=Q, H=H, L=L, P=P, D=D,
-                       max_abs_err=max(errs.values()),
-                       errs=errs, rel_tol=rel_tol, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by,
-                       loc_taps_near_boundary=int((~smooth).sum().item()))
-            print("kernel bwd", json.dumps(rec), flush=True)
-            records.append(rec)
+            # out, or grad_value and grad_attn (grad_loc jumps at pixel
+            # boundaries, where the two may round differently)
+            pairs = [(a, b)] if key == "fwd" else [(a[0], b[0]), (a[2], b[2])]
+            rec[f"{key}_max_abs_diff"] = max(
+                (x - y).abs().max().item() for x, y in pairs)
+            times = [cuda_ms(f) for f in (parent_fn, this_fn, this_fn,
+                                          parent_fn)]
+            rec[f"{key}_parent_ms"] = (times[0] + times[3]) / 2
+            rec[f"{key}_ms"] = (times[1] + times[2]) / 2
+            rec[f"{key}_times"] = times
+        print("parent", json.dumps(rec), flush=True)
+        records.append(rec)
     return records
 
 
@@ -773,23 +1012,36 @@ def distill(smi):
 
 def kernel_record(name, records, launches, replaces, **extra):
     """The kernel's line: ``ms``, ``plain_ms``, ``library_ms`` and
-    ``bound_ms`` of one main-path call (msda: the encoder call; window
-    attention: one encoder layer, the four flagship levels unshifted), f32;
-    ``max_abs_err`` the largest of every checked shape and dtype."""
-    main_call = "encoder" if name.startswith("msda") else "layer"
-    rec, = [r for r in records
-            if r["dtype"] == "float32" and r["case"] == main_call]
-    return {"name": name, "route": "cuda",
+    ``bound_ms`` of one main-path call (msda: the encoder call on
+    uniform-random inputs, and with the suffix ``_in_model`` the first
+    captured encoder call; window attention: one encoder layer, the four
+    flagship levels unshifted), f32; ``max_abs_err`` the largest of every
+    checked shape and dtype."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    msda = name.startswith("msda")
+    rec, = [r for r in records if r["dtype"] == "float32"
+            and r["case"] == ("encoder" if msda else "layer")]
+    line = {"name": name, "route": "cuda",
             "source": f"pavenet_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in records),
-            **{k: rec.get(k) for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")},
-            **extra}
+            **{k: rec.get(k) for k in keys}}
+    if msda:
+        rec, = [r for r in records if r["dtype"] == "float32"
+                and r["case"] == "encoder0"]
+        line.update({f"{k}_in_model": rec[k] for k in keys[:4]})
+    return {**line, **extra}
 
 
-def main():
+def main(argv=None):
+    import argparse
     import torch
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", metavar="DIR",
+                        help="a checkout of an earlier commit: build its msda "
+                        "kernels and time them against this tree's on the "
+                        "encoder inputs (only that phase runs)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is False)")
@@ -815,19 +1067,31 @@ def main():
             if "Used" in line or "spill" in line or "Compiling" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    # 3-5. kernels vs plain
-    fwd = check_forward(ms_deform_attn, ms_deform_attn_torch)
-    bwd = check_backward(_ext, ms_deform_attn_torch)
+    # 3. the msda calls of one flagship clip, on the plain path
+    captured = capture_in_model()
+    print("captured: " + ", ".join(
+        f"{n} {tuple(loc.shape)}" for n, _, _, loc, _ in captured),
+        flush=True)
+    if args.parent:
+        compare_parent(_ext, args.parent, captured)
+        return
+
+    # 4-7. kernels vs plain, then what bounds the msda kernels
+    fwd = check_forward(ms_deform_attn, ms_deform_attn_torch, captured)
+    bwd = check_backward(_ext, ms_deform_attn_torch, captured)
+    check_probes(_ext, captured)
+    del captured
+    torch.cuda.empty_cache()
     win_fwd, win_bwd, _ = check_window(_ext)
 
-    # 6-7. flagship (deformable) serve and train
+    # 8-9. flagship (deformable) serve and train
     flagship = {"msda_fwd": CALLS_PER_CLIP, "msda_bwd": CALLS_PER_CLIP}
     serve_launches = serve(smi, CONFIG, {"msda_fwd": CALLS_PER_CLIP})
     train_launches = train(smi, CONFIG, flagship)
     train_parity(CONFIG)
     torch.cuda.empty_cache()
 
-    # 8-10. the windowed variant: serve, train, distill
+    # 10-12. the windowed variant: serve, train, distill
     windowed = {"msda_fwd": WINDOWED_MSDA_CALLS,
                 "window_attn_fwd": WINDOW_CALLS}
     w_serve = serve(smi, WINDOWED_CONFIG, windowed)

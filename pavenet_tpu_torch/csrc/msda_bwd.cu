@@ -13,7 +13,7 @@
 // with zero padding (a corner outside [0,W_l) x [0,H_l) counts zero), and the
 // output gradient g[b,q,h*D+d], it computes
 //
-//   grad_value[b,corner,h,d] += a * w_corner * g[d]          (f32 atomics)
+//   grad_value[b,corner,h,d] += a * w_corner * g[d]          (f32 sums)
 //   grad_attn[b,q,h,l,p]      = sum_d g[d] * bilinear[d]
 //   grad_loc[b,q,h,l,p,0]     = a * W_l * sum_d g[d] * dbilinear/dx[d]
 //   grad_loc[b,q,h,l,p,1]     = a * H_l * sum_d g[d] * dbilinear/dy[d]
@@ -26,154 +26,320 @@
 // What bounds it: memory.  One flagship encoder call (B*T=3, Q=N=22323,
 // H=8, L=4, P=4, D=32) must read value, locations, weights and g and write
 // grad_value, grad_loc and grad_attn: about 411 MB in f32, 123 us at
-// 3.35 TB/s; its arithmetic (about 32 flops per in-range tap and channel)
-// is of the same order at the f32 rate.  What bounds this design: the f32
-// atomicAdd traffic on grad_value (four corner rows per tap, with many taps
-// of neighbouring queries landing on the same rows).
+// 3.35 TB/s.  What bounds a design: the grad_value scatter, 4 corner rows
+// per tap, many taps on the same rows (level 3 takes about 1300 corner hits
+// per row per call), applied by the L2 one add at a time per address.
 //
-// Design: one warp per (b, q, h), lanes along d (D < 32 leaves lanes idle,
-// D > 32 loops), so each corner read and each corner atomic is one coalesced
-// row; the three per-tap sums are warp reductions written by lane 0, so
-// grad_loc and grad_attn need no atomics and no zeroing.  grad_value is an
-// f32 scratch that the wrapper zeroes and casts to the value's type.
-// Left to later PRs: staging level tiles in shared memory, sorting taps by
-// level tile to cut atomic contention, bf16 pairs (__nv_bfloat162).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design (the partition of csrc/msda_common.cuh, as the forward): one
+// (b, h) and a chunk of queries per block, an item's g row loaded once
+// into registers, each tap's geometry computed once per item and shuffled
+// to its lanes.  Per corner a lane reads its 4 channels of value (16 bytes
+// in f32, 8 in bf16), forms its part of g . v (one dot per corner gives
+// grad_attn and both location derivatives) and adds a * w_corner * g,
+// unless that is exactly zero (a tap on an integer coordinate: adding 0
+// changes nothing):
+// - into an f32 table in shared memory for the levels the plan stages
+//   (TPU design: grad_value resident in VMEM), shared atomics with the
+//   channel order rotated by the item's place in the warp so that the
+//   warp's items hit distinct banks (Hopper has no shared f32 atomic add:
+//   each is a compare-and-swap loop, which the rotation lets succeed at
+//   the first try); the block then flushes the table once, 16-byte vector
+//   reductions, skipping vectors that stayed zero;
+// - directly with 16-byte vector reductions (red.global.add.v4.f32) for the
+//   other levels, one per 4 channels instead of four scalar atomics.
+// The three per-tap sums reduce over the item's lanes once per round of
+// kGroup taps (a reduce-scatter: lane g ends with the sums of tap g, the
+// tap it owns) and that lane writes them, so grad_loc and grad_attn need
+// no atomics and no zeroing.  grad_value is an f32 scratch that the wrapper
+// zeroes and casts to the value's type.
+#include "msda_common.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+using namespace msda;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// s * gr, this lane's kVec channels of one corner row, added into
+// grad_value at p (global: 16-byte vector reductions) or into the shared
+// table (one atomic per channel, the channel order rotated by ``rot``)
+template <int kVec>
+__device__ __forceinline__ void scatter_global(float* p, float s,
+                                               const float (&gr)[kVec]) {
+#pragma unroll
+  for (int e = 0; e < kVec; e += 4)
+    red_add_v4(p + e, s * gr[e], s * gr[e + 1], s * gr[e + 2], s * gr[e + 3]);
+}
+template <int kVec>
+__device__ __forceinline__ void scatter_shared(float* p, float s,
+                                               const float (&gr)[kVec],
+                                               int rot) {
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    const int k = (e + rot) & (kVec - 1);
+    float x = gr[0];
+#pragma unroll
+    for (int i = 1; i < kVec; ++i) x = i == k ? gr[i] : x;
+    atomicAdd(p + k, s * x);
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// a[j] summed over the item's kGroup lanes, for j = this lane's index g:
+// halving exchanges, kGroup - 1 shuffles in all (a butterfly per value
+// would take kGroup * log2(kGroup))
+template <int kGroup>
+__device__ __forceinline__ float reduce_scatter(float (&a)[kGroup], int g) {
+#pragma unroll
+  for (int half = kGroup / 2; half > 0; half /= 2) {
+    const bool upper = g & half;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = upper ? a[i] : a[i + half];
+      const float keep = upper ? a[i + half] : a[i];
+      a[i] = keep + __shfl_xor_sync(0xffffffffu, send, half, kGroup);
+    }
+  }
+  return a[0];
 }
 
-template <typename T>
-__global__ void msda_bwd_kernel(const T* __restrict__ value,
-                                const int32_t* __restrict__ shapes,
-                                const int32_t* __restrict__ level_start,
-                                const float* __restrict__ loc,
-                                const float* __restrict__ attn,
-                                const float* __restrict__ grad_out,
-                                float* __restrict__ grad_value,
-                                float* __restrict__ grad_loc,
-                                float* __restrict__ grad_attn, int B, int N,
-                                int Q, int H, int D, int L, int P) {
-  // warp-uniform: every lane of a warp shares one (b, q, h)
-  const int64_t bqh = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  if (bqh >= (int64_t)B * Q * H) return;
-  const int lane = threadIdx.x % 32;
-  const int h = (int)(bqh % H);
-  const int b = (int)(bqh / ((int64_t)Q * H));
+template <typename T, int D, int kMode>
+__global__ void __launch_bounds__(kMaxThreads)
+    msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                    const float* __restrict__ attn,
+                    const float* __restrict__ grad_out,
+                    float* __restrict__ grad_value,
+                    float* __restrict__ grad_loc,
+                    float* __restrict__ grad_attn, const Table tb) {
+  constexpr int kVec = Lanes<D, 4>::kVec, kGroup = Lanes<D, 4>::kGroup;
+  constexpr bool kSums = kMode != kNoSums;
+  constexpr bool kShared = kMode != kNoScatter && kMode != kNoShared;
+  constexpr bool kDirect = kMode != kNoScatter && kMode != kNoDirect;
+  extern __shared__ __align__(16) float gtab[];
+  __shared__ Level lvs[kMaxLevels];
+  if (kMode == kEmpty) return;
 
-  const int64_t row = (int64_t)H * D;  // stride between tokens
-  const int64_t vb = (int64_t)b * N * row + (int64_t)h * D;
-  const float* lp = loc + bqh * L * P * 2;
-  const float* ap = attn + bqh * L * P;
-  const float* gp = grad_out + bqh * D;
-  float* glp = grad_loc + bqh * L * P * 2;
-  float* gap = grad_attn + bqh * L * P;
+  const int bh = blockIdx.y, b = bh / tb.H, h = bh - b * tb.H;
+  const int q_begin = blockIdx.x * tb.chunk;
+  const int q_end = min(q_begin + tb.chunk, tb.Q);
+  const int64_t row = (int64_t)tb.H * D;  // stride between tokens
+  const int64_t base = (int64_t)b * tb.N * row + (int64_t)h * D;
+  const T* vb = value + base;
+  float* gvb = grad_value + base;
+  load_levels(tb, lvs);
+  if (kShared) {
+    float4* t4 = reinterpret_cast<float4*>(gtab);
+    for (int i = threadIdx.x; i < tb.staged_rows * D / 4; i += blockDim.x)
+      t4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
 
-  for (int l = 0; l < L; ++l) {
-    const int hl = shapes[2 * l];
-    const int wl = shapes[2 * l + 1];
-    const int64_t vl = vb + (int64_t)level_start[l] * row;
-    for (int p = 0; p < P; ++p) {
-      const int t = l * P + p;
-      const float x = lp[2 * t] * wl - 0.5f;
-      const float y = lp[2 * t + 1] * hl - 0.5f;
-      float s_attn = 0.f, s_x = 0.f, s_y = 0.f;
-      const float a = ap[t];
-      // at least one corner inside (also rejects NaN and huge values)
-      if (x > -1.f && y > -1.f && x < (float)wl && y < (float)hl) {
-        const float xf = floorf(x), yf = floorf(y);
-        const int x0 = (int)xf, y0 = (int)yf;
-        const float lx = x - xf, ly = y - yf;
-        const float hx = 1.f - lx, hy = 1.f - ly;
-        const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < wl;
-        const bool in_y0 = y0 >= 0, in_y1 = y0 + 1 < hl;
-        const int64_t r0 = vl + ((int64_t)y0 * wl + x0) * row;  // (y0, x0)
-        const int64_t r1 = r0 + (int64_t)wl * row;              // (y0+1, x0)
-        const bool c00 = in_y0 && in_x0, c01 = in_y0 && in_x1;
-        const bool c10 = in_y1 && in_x0, c11 = in_y1 && in_x1;
-        for (int d = lane; d < D; d += 32) {
-          const float g = gp[d];
-          const float v00 = c00 ? to_float(value[r0 + d]) : 0.f;
-          const float v01 = c01 ? to_float(value[r0 + row + d]) : 0.f;
-          const float v10 = c10 ? to_float(value[r1 + d]) : 0.f;
-          const float v11 = c11 ? to_float(value[r1 + row + d]) : 0.f;
-          s_attn += g * (hy * (hx * v00 + lx * v01) +
-                         ly * (hx * v10 + lx * v11));
-          s_x += g * (hy * (v01 - v00) + ly * (v11 - v10));
-          s_y += g * (hx * (v10 - v00) + lx * (v11 - v01));
-          const float ag = a * g;
-          if (c00) atomicAdd(grad_value + r0 + d, hy * hx * ag);
-          if (c01) atomicAdd(grad_value + r0 + row + d, hy * lx * ag);
-          if (c10) atomicAdd(grad_value + r1 + d, ly * hx * ag);
-          if (c11) atomicAdd(grad_value + r1 + row + d, ly * lx * ag);
+  const int g = threadIdx.x & (kGroup - 1);  // lane within the item
+  const int slot = threadIdx.x / kGroup;
+  const int slots = blockDim.x / kGroup;
+  const int rot = ((threadIdx.x & 31) / kGroup) & (kVec - 1);  // item in warp
+  const int LP = tb.L * tb.P;
+  for (int q0 = q_begin; q0 < q_end; q0 += slots) {  // block-uniform
+    const int q = q0 + slot;
+    const bool active = q < q_end;
+    const int64_t bqh = ((int64_t)b * tb.Q + (active ? q : q0)) * tb.H + h;
+    const float* lp = loc + bqh * LP * 2;
+    const float* ap = attn + bqh * LP;
+    float gr[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; e += 4) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (active)
+        x = __ldg(reinterpret_cast<const float4*>(grad_out + bqh * D +
+                                                  g * kVec + e));
+      gr[e] = x.x; gr[e + 1] = x.y; gr[e + 2] = x.z; gr[e + 3] = x.w;
+    }
+    for (int t0 = 0; t0 < LP; t0 += kGroup) {
+      Tap mine{0, 0.f, 0.f, 0.f};
+      if (active && t0 + g < LP)
+        mine = tap_geometry(lvs, t0 + g, tb.P, lp, ap);
+      // this lane's part of each tap's three sums, reduced per round
+      float s_attn[kGroup], s_x[kGroup], s_y[kGroup];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) s_attn[j] = s_x[j] = s_y[j] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        if (t0 + j >= LP) break;  // uniform over the warp
+        const Tap tp = shfl_tap<kGroup>(mine, j);
+        const int m = tp.mask();
+        const Level lv = lvs[tp.level()];
+        const float lx = tp.lx, ly = tp.ly, hx = 1.f - lx, hy = 1.f - ly;
+        float dot[4] = {0.f, 0.f, 0.f, 0.f};
+        if (m) {
+          const float cw[4] = {hy * hx, hy * lx, ly * hx, ly * lx};
+          const int off[4] = {0, 1, lv.w, lv.w + 1};
+          if (kSums) {
+            float v[4][kVec];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              if (m >> c & 1) {
+                load_vec<true>(vb + (tp.corner() + off[c]) * row + g * kVec,
+                               v[c]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < kVec; ++e) v[c][e] = 0.f;
+              }
+            }
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+#pragma unroll
+              for (int e = 0; e < kVec; ++e)
+                dot[c] = fmaf(gr[e], v[c][e], dot[c]);
+          }
+          if (staged(lv) ? kShared : kDirect) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int tok = tp.corner() + off[c];
+              const float s = tp.a * cw[c];
+              // a corner outside the map, or one that adds exactly zero
+              if (!(m >> c & 1) || s == 0.f) continue;
+              if (staged(lv))
+                scatter_shared<kVec>(
+                    gtab + (int64_t)(tok - lv.delta) * D + g * kVec, s, gr,
+                    rot);
+              else
+                scatter_global<kVec>(gvb + tok * row + g * kVec, s, gr);
+            }
+          }
         }
-        s_attn = warp_sum(s_attn);
-        s_x = warp_sum(s_x);
-        s_y = warp_sum(s_y);
+        s_attn[j] = hy * (hx * dot[0] + lx * dot[1]) +
+                    ly * (hx * dot[2] + lx * dot[3]);
+        s_x[j] = hy * (dot[1] - dot[0]) + ly * (dot[3] - dot[2]);
+        s_y[j] = hx * (dot[2] - dot[0]) + lx * (dot[3] - dot[1]);
       }
-      if (lane == 0) {
-        gap[t] = s_attn;
-        glp[2 * t] = a * s_x * (float)wl;
-        glp[2 * t + 1] = a * s_y * (float)hl;
+      // lane g ends with the sums of tap t0 + g, its own tap
+      float o_attn = 0.f, o_x = 0.f, o_y = 0.f;
+      if (kSums) {
+        const Level lv = lvs[mine.level()];
+        o_attn = reduce_scatter<kGroup>(s_attn, g);
+        o_x = mine.a * reduce_scatter<kGroup>(s_x, g) * (float)lv.w;
+        o_y = mine.a * reduce_scatter<kGroup>(s_y, g) * (float)lv.h;
       }
+      const int t = t0 + g;
+      if (active && t < LP) {
+        grad_attn[bqh * LP + t] = o_attn;
+        *reinterpret_cast<float2*>(grad_loc + (bqh * LP + t) * 2) =
+            make_float2(o_x, o_y);
+      }
+    }
+  }
+
+  if (!kShared || tb.staged_rows == 0) return;
+  __syncthreads();
+  // flush the shared table: one vector reduction per 4 channels of a row
+  // that any tap of the block reached
+  constexpr int kV4 = D / 4;
+  for (int l = 0; l < tb.L; ++l) {
+    const Level lv = lvs[l];
+    if (!staged(lv)) continue;
+    const float4* src = reinterpret_cast<const float4*>(
+        gtab + (int64_t)(lv.start - lv.delta) * D);
+    const int n = lv.h * lv.w * kV4;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const float4 x = src[i];
+      if (x.x == 0.f && x.y == 0.f && x.z == 0.f && x.w == 0.f) continue;
+      const int r = i / kV4, c = (i - r * kV4) * 4;
+      red_add_v4(gvb + (lv.start + r) * row + c, x.x, x.y, x.z, x.w);
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* value, const void* shapes,
-                   const void* level_start, const void* loc, const void* attn,
-                   const void* grad_out, void* grad_value, void* grad_loc,
-                   void* grad_attn, int B, int N, int Q, int H, int D, int L,
-                   int P, cudaStream_t stream) {
-  const int64_t warps = (int64_t)B * Q * H;
-  const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  msda_bwd_kernel<T><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(value), static_cast<const int32_t*>(shapes),
-      static_cast<const int32_t*>(level_start),
-      static_cast<const float*>(loc), static_cast<const float*>(attn),
-      static_cast<const float*>(grad_out), static_cast<float*>(grad_value),
-      static_cast<float*>(grad_loc), static_cast<float*>(grad_attn), B, N, Q,
-      H, D, L, P);
+template <typename T, int D, int kMode>
+cudaError_t launch_typed(const void* value, const void* loc, const void* attn,
+                         const void* grad_out, void* grad_value,
+                         void* grad_loc, void* grad_attn, const Table& tb,
+                         int rows, int chunks, int threads,
+                         cudaStream_t stream) {
+  auto kernel = msda_bwd_kernel<T, D, kMode>;
+  static bool attr_set = false;  // once per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const size_t smem = (size_t)rows * D * sizeof(float);
+  kernel<<<dim3(chunks, tb.B * tb.H), threads, smem, stream>>>(
+      static_cast<const T*>(value), static_cast<const float*>(loc),
+      static_cast<const float*>(attn), static_cast<const float*>(grad_out),
+      static_cast<float*>(grad_value), static_cast<float*>(grad_loc),
+      static_cast<float*>(grad_attn), tb);
   return cudaGetLastError();
+}
+
+template <int kMode>
+int launch(const void* value, const void* loc, const void* attn,
+           const void* grad_out, void* grad_value, void* grad_loc,
+           void* grad_attn, const int* levels, int L, int dtype, int B, int N,
+           int Q, int H, int D, int P, int chunk, int threads, void* stream) {
+  if (L < 1 || L > kMaxLevels || chunk < 1 || threads < 32 ||
+      threads > kMaxThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  Table tb;
+  const int rows = make_table(tb, levels, L, B, N, Q, H, P, chunk);
+  if ((size_t)rows * D * sizeof(float) > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (Q + chunk - 1) / chunk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MSDA_CASE(T, DT, DD)                                              \
+  if (dtype == DT && D == DD)                                            \
+    return (int)launch_typed<T, DD, kMode>(value, loc, attn, grad_out,    \
+                                           grad_value, grad_loc, grad_attn, \
+                                           tb, rows, chunks, threads, s);
+  MSDA_CASE(float, 0, 4)
+  MSDA_CASE(float, 0, 8)
+  MSDA_CASE(float, 0, 32)
+  MSDA_CASE(__nv_bfloat16, 1, 4)
+  MSDA_CASE(__nv_bfloat16, 1, 8)
+  MSDA_CASE(__nv_bfloat16, 1, 32)
+#undef MSDA_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16
-// (value only).  loc, attn and grad_out are float32; grad_value (B,N,H,D)
-// is a zeroed float32 scratch; grad_loc (B,Q,H,L,P,2) and grad_attn
-// (B,Q,H,L,P) are float32 and fully written; shapes (L, 2) and level_start
-// (L,) are int32; all on the device, contiguous.  Returns cudaGetLastError()
-// after the launch (0 = success).
-extern "C" int msda_bwd(const void* value, const void* shapes,
-                        const void* level_start, const void* loc,
-                        const void* attn, const void* grad_out,
-                        void* grad_value, void* grad_loc, void* grad_attn,
-                        int dtype, int B, int N, int Q, int H, int D, int L,
-                        int P, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch<float>(value, shapes, level_start, loc, attn,
-                              grad_out, grad_value, grad_loc, grad_attn, B, N,
-                              Q, H, D, L, P, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(value, shapes, level_start, loc, attn,
-                                      grad_out, grad_value, grad_loc,
-                                      grad_attn, B, N, Q, H, D, L, P, s);
+// (value only); D in {4, 8, 32}.  loc, attn and grad_out (B,Q,H*D) are
+// float32; grad_value (B,N,H,D) is a zeroed float32 scratch; grad_loc
+// (B,Q,H,L,P,2) and grad_attn (B,Q,H,L,P) are float32 and fully written;
+// all on the device, contiguous, 16-byte aligned.  levels, chunk and
+// threads as msda_fwd (from ops/_ext.py::msda_plan with backward=True: the
+// shared table holds f32 gradient rows).  Returns cudaGetLastError() after
+// the launch (0 = success).
+extern "C" int msda_bwd(const void* value, const void* loc, const void* attn,
+                        const void* grad_out, void* grad_value, void* grad_loc,
+                        void* grad_attn, const int* levels, int L, int dtype,
+                        int B, int N, int Q, int H, int D, int P, int chunk,
+                        int threads, void* stream) {
+  return launch<kFull>(value, loc, attn, grad_out, grad_value, grad_loc,
+                       grad_attn, levels, L, dtype, B, N, Q, H, D, P, chunk,
+                       threads, stream);
+}
+
+// The same launch with a part of the work removed (mode: 1 = empty body,
+// 3 = no grad_value reductions, 4 = no per-tap sums, 5 = none into the
+// shared table, 6 = none made directly to global memory).  Wrong on purpose:
+// chip_smoke.py times it to see what bounds msda_bwd; no module of the
+// package calls it.
+extern "C" int msda_bwd_ablate(const void* value, const void* loc,
+                               const void* attn, const void* grad_out,
+                               void* grad_value, void* grad_loc,
+                               void* grad_attn, const int* levels, int L,
+                               int dtype, int B, int N, int Q, int H, int D,
+                               int P, int chunk, int threads, int mode,
+                               void* stream) {
+#define MSDA_MODE(M)                                                       \
+  if (mode == M)                                                           \
+    return launch<M>(value, loc, attn, grad_out, grad_value, grad_loc,     \
+                     grad_attn, levels, L, dtype, B, N, Q, H, D, P, chunk, \
+                     threads, stream);
+  MSDA_MODE(kEmpty)
+  MSDA_MODE(kNoScatter)
+  MSDA_MODE(kNoSums)
+  MSDA_MODE(kNoShared)
+  MSDA_MODE(kNoDirect)
+#undef MSDA_MODE
   return (int)cudaErrorInvalidValue;
 }

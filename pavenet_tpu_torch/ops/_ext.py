@@ -9,6 +9,7 @@ library is never loaded.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -29,11 +30,12 @@ KERNELS = ("msda_fwd", "msda_bwd", "window_attn_fwd", "window_attn_bwd")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # ctypes signatures: pointers (and the stream) as c_void_p, ints as c_int
+_MSDA_INTS = [ctypes.c_int] * 10   # L, dtype, B, N, Q, H, D, P, chunk, threads
 _ARGTYPES = {
-    "msda_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                + [ctypes.c_void_p],
-    "msda_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                + [ctypes.c_void_p],
+    # value, loc, attn, out, the level table (host array)
+    "msda_fwd": [ctypes.c_void_p] * 5 + _MSDA_INTS + [ctypes.c_void_p],
+    # value, loc, attn, grad_out, grad_value, grad_loc, grad_attn, levels
+    "msda_bwd": [ctypes.c_void_p] * 8 + _MSDA_INTS + [ctypes.c_void_p],
     # n_levels, the level table's pointers and dims (host arrays), windows,
     # dtype, C, num_heads, wh, ww
     "window_attn_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 2
@@ -41,6 +43,17 @@ _ARGTYPES = {
     "window_attn_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 2
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
+# msda: head sizes the kernels are compiled for (the edge case, the tiny
+# configs, the flagship), the most levels of one call, what the plan may
+# give a block (Hopper's 227 KB of shared memory less the kernels' 128-byte
+# level table) and an SM (228 KB), and the blocks a call is cut into per
+# direction (4 and 8 per SM of the H100's 132: the backward's smaller
+# chunks spread its reductions)
+MSDA_HEAD_DIMS = (4, 8, 32)
+MSDA_MAX_LEVELS = 8
+MSDA_SMEM_BYTES = 232448 - 128
+MSDA_SM_SMEM_BYTES = 233472
+MSDA_BLOCKS_PER_CALL = {False: 4 * 132, True: 8 * 132}
 # head sizes the window-attention kernels are compiled for: the flagship's
 # 256 / 8 and the tiny debug configs' 64 / 8; the window is 128 tokens and
 # one launch takes at most WINDOW_MAX_LEVELS level rasters
@@ -129,36 +142,109 @@ def _load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, value: torch.Tensor, **tensors):
-    for k, t in dict(value=value, **tensors).items():
-        if not t.is_cuda or t.device != value.device:
-            raise ValueError(f"{name}: {k} must be on {value.device} "
-                             f"(a CUDA device), got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {k} must be contiguous")
-        if k not in ("value", "shapes", "level_start") and (
-                t.dtype != torch.float32):
-            raise TypeError(f"{name}: {k} must be float32, got {t.dtype}")
-    if value.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: value dtype {value.dtype} not supported")
-    shapes, level_start = tensors["shapes"], tensors["level_start"]
-    if shapes.dtype != torch.int32 or level_start.dtype != torch.int32:
-        raise TypeError(f"{name}: shapes and level_start must be int32")
-    loc, attn = tensors["loc"], tensors["attn"]
+MsdaPlan = collections.namedtuple("MsdaPlan", "chunk threads levels smem")
+MsdaPlan.__doc__ = """A call's work partition: ``chunk`` queries of one
+(b, h) per block, ``threads`` per block, ``levels`` the (H_l, W_l, first
+row in the block's shared table or -1) of each level, ``smem`` the bytes
+of that table."""
+
+
+@functools.lru_cache(maxsize=256)
+def msda_plan(shapes, B: int, Q: int, H: int, P: int, D: int, dtype,
+              backward: bool = False,
+              smem_bytes: int = MSDA_SMEM_BYTES) -> MsdaPlan:
+    """Plan one msda launch (pure: the CPU tests check it).
+
+    The call is cut into about ``MSDA_BLOCKS_PER_CALL[backward]`` blocks,
+    each one (b, h) and a chunk of consecutive queries. Levels are staged
+    in the block's shared memory coarsest first (the value rows in the
+    value's dtype forward, an f32 gradient table backward) while the taps
+    of a block on the level (``chunk * P``) outnumber its rows and the
+    table stays within ``smem_bytes`` (at most ``MSDA_SMEM_BYTES``); the
+    other levels are read (and reduced) through L1. The kernels hold 64
+    registers a thread, so an SM runs 1024 threads: a block takes 1024
+    over the number of blocks the SM's shared memory holds (at most 4),
+    and never more than its chunk's lanes need.
+    """
+    shapes = tuple((int(h), int(w)) for h, w in shapes)
+    L = len(shapes)
+    if not 1 <= L <= MSDA_MAX_LEVELS:
+        raise ValueError(f"msda: {L} levels, not 1..{MSDA_MAX_LEVELS}")
+    if D not in MSDA_HEAD_DIMS:
+        raise ValueError(f"msda: head size {D} not in {MSDA_HEAD_DIMS}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"msda: value dtype {dtype} not supported")
+    if not 0 <= smem_bytes <= MSDA_SMEM_BYTES:
+        raise ValueError(f"msda: {smem_bytes} bytes of shared memory, not "
+                         f"0..{MSDA_SMEM_BYTES}")
+    if min(B, Q, H, P) < 1 or min(min(s) for s in shapes) < 1:
+        raise ValueError(f"msda: empty call B={B} Q={Q} H={H} P={P} "
+                         f"levels {shapes}")
+    # a block stages rows of the value's dtype forward and f32 gradient
+    # rows backward; a lane owns 8 channels forward, 4 backward
+    row_bytes = D * (4 if backward or dtype == torch.float32 else 2)
+    lanes = D // min(D, 4 if backward else 8)    # lanes per (b, q, h)
+    chunks = max(1, -(-MSDA_BLOCKS_PER_CALL[backward] // (B * H)))
+    chunk = -(-Q // chunks)
+    smem_row, rows = [-1] * L, 0
+    for l in sorted(range(L), key=lambda l: shapes[l][0] * shapes[l][1]):
+        n = shapes[l][0] * shapes[l][1]
+        if chunk * P <= n or (rows + n) * row_bytes > smem_bytes:
+            break
+        smem_row[l], rows = rows, rows + n
+    smem = rows * row_bytes
+    # the SM's 1024 threads (64 registers each) among the blocks its shared
+    # memory holds (228 KB, 1 KB of it reserved per block), at most 4
+    blocks = min(4, MSDA_SM_SMEM_BYTES // (smem + 128 + 1024))
+    threads = min(1024 // blocks, -(-chunk * lanes // 32) * 32)
+    return MsdaPlan(chunk, threads,
+                    tuple(zip(*zip(*shapes), smem_row)), smem)
+
+
+def _check_msda(name: str, value, shapes, loc, attn, **more):
+    """Check one msda launch's operands; returns (B, N, Q, H, D, L, P)."""
+    device = value.get_device()
+    tensors = dict(value=value, loc=loc, attn=attn, **more)
+    for key, t in tensors.items():
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be contiguous and 16-byte "
+                             "aligned")
+    for key, t in tensors.items():
+        if device < 0 or t.get_device() != device:
+            raise ValueError(f"{name}: {key} must be on {value.device} (a "
+                             f"CUDA device), got {t.device}")
+        if key != "value" and t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
     if value.dim() != 4 or loc.dim() != 6 or attn.dim() != 5:
         raise ValueError(f"{name}: expected value (B,N,H,D), loc "
                          "(B,Q,H,L,P,2), attn (B,Q,H,L,P)")
     B, N, H, D = value.shape
     _, Q, _, L, P, _ = loc.shape
     if (loc.shape != (B, Q, H, L, P, 2) or attn.shape != (B, Q, H, L, P)
-            or shapes.shape != (L, 2) or level_start.shape != (L,)):
+            or len(shapes) != L or sum(h * w for h, w in shapes) != N):
         raise ValueError(
             f"{name}: shape mismatch value {tuple(value.shape)}, loc "
-            f"{tuple(loc.shape)}, attn {tuple(attn.shape)}, shapes "
-            f"{tuple(shapes.shape)}, level_start {tuple(level_start.shape)}")
-    if B * Q * H * D == 0:
-        raise ValueError(f"{name}: empty output")
+            f"{tuple(loc.shape)}, attn {tuple(attn.shape)}, levels "
+            f"{tuple(shapes)}")
+    if B * H > 65535 or N >= 1 << 24:
+        raise ValueError(f"{name}: B * H = {B * H} or N = {N} exceeds what "
+                         "the kernels index (65535, 2^24 - 1)")
     return B, N, Q, H, D, L, P
+
+
+def msda_args(name: str, value, shapes, loc, attn, backward=False,
+              smem_bytes=MSDA_SMEM_BYTES, **more):
+    """Check one msda launch; returns its C arguments after the tensors:
+    the level table (a host array), L, dtype, B, N, Q, H, D, P, chunk,
+    threads (the plan of ``msda_plan``)."""
+    shapes = tuple((int(h), int(w)) for h, w in shapes)
+    B, N, Q, H, D, L, P = _check_msda(name, value, shapes, loc, attn,
+                                      **more)
+    plan = msda_plan(shapes, B, Q, H, P, D, value.dtype, backward,
+                     smem_bytes)
+    flat = [x for level in plan.levels for x in level]
+    return ((ctypes.c_int * len(flat))(*flat), L, _DTYPE_CODES[value.dtype],
+            B, N, Q, H, D, P, plan.chunk, plan.threads)
 
 
 def _launch(name: str, device, *args):
@@ -169,27 +255,25 @@ def _launch(name: str, device, *args):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def msda_fwd(value: torch.Tensor, shapes: torch.Tensor,
-             level_start: torch.Tensor, loc: torch.Tensor,
+def msda_fwd(value: torch.Tensor, shapes, loc: torch.Tensor,
              attn: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/msda_fwd.cu`` on the current stream.
 
-    value ``(B,N,H,D)`` float32/bfloat16; shapes ``(L,2)`` and level_start
-    ``(L,)`` int32; loc ``(B,Q,H,L,P,2)`` and attn ``(B,Q,H,L,P)`` float32.
-    All on one CUDA device and contiguous. Returns ``(B,Q,H*D)`` in the
-    value's dtype.
+    value ``(B,N,H,D)`` float32/bfloat16, D in ``MSDA_HEAD_DIMS``; shapes
+    the levels' ``((H_0, W_0), ...)``; loc ``(B,Q,H,L,P,2)`` and attn
+    ``(B,Q,H,L,P)`` float32. All on one CUDA device, contiguous and 16-byte
+    aligned. Returns ``(B,Q,H*D)`` in the value's dtype.
     """
-    B, N, Q, H, D, L, P = _check("msda_fwd", value, shapes=shapes,
-                                 level_start=level_start, loc=loc, attn=attn)
-    out = torch.empty((B, Q, H * D), dtype=value.dtype, device=value.device)
-    _launch("msda_fwd", value.device, value.data_ptr(), shapes.data_ptr(),
-            level_start.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-            out.data_ptr(), _DTYPE_CODES[value.dtype], B, N, Q, H, D, L, P)
+    args = msda_args("msda_fwd", value, shapes, loc, attn)
+    B, _, H, D = value.shape
+    out = torch.empty((B, loc.shape[1], H * D), dtype=value.dtype,
+                      device=value.device)
+    _launch("msda_fwd", value.device, value.data_ptr(), loc.data_ptr(),
+            attn.data_ptr(), out.data_ptr(), *args)
     return out
 
 
-def msda_bwd(value: torch.Tensor, shapes: torch.Tensor,
-             level_start: torch.Tensor, loc: torch.Tensor,
+def msda_bwd(value: torch.Tensor, shapes, loc: torch.Tensor,
              attn: torch.Tensor, grad_out: torch.Tensor):
     """Launch ``csrc/msda_bwd.cu`` on the current stream.
 
@@ -197,21 +281,19 @@ def msda_bwd(value: torch.Tensor, shapes: torch.Tensor,
     ``(grad_value, grad_loc, grad_attn)``: grad_value in the value's dtype
     (summed in a float32 scratch), grad_loc and grad_attn float32.
     """
-    B, N, Q, H, D, L, P = _check("msda_bwd", value, shapes=shapes,
-                                 level_start=level_start, loc=loc, attn=attn,
-                                 grad_out=grad_out)
-    if grad_out.shape != (B, Q, H * D):
+    args = msda_args("msda_bwd", value, shapes, loc, attn, backward=True,
+                     grad_out=grad_out)
+    B, N, H, D = value.shape
+    if grad_out.shape != (B, loc.shape[1], H * D):
         raise ValueError(f"msda_bwd: grad_out {tuple(grad_out.shape)} is "
-                         f"not {(B, Q, H * D)}")
+                         f"not {(B, loc.shape[1], H * D)}")
     grad_value = torch.zeros((B, N, H, D), dtype=torch.float32,
                              device=value.device)
     grad_loc = torch.empty_like(loc)
     grad_attn = torch.empty_like(attn)
-    _launch("msda_bwd", value.device, value.data_ptr(), shapes.data_ptr(),
-            level_start.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-            grad_out.data_ptr(), grad_value.data_ptr(), grad_loc.data_ptr(),
-            grad_attn.data_ptr(), _DTYPE_CODES[value.dtype], B, N, Q, H, D,
-            L, P)
+    _launch("msda_bwd", value.device, value.data_ptr(), loc.data_ptr(),
+            attn.data_ptr(), grad_out.data_ptr(), grad_value.data_ptr(),
+            grad_loc.data_ptr(), grad_attn.data_ptr(), *args)
     return grad_value.to(value.dtype), grad_loc, grad_attn
 
 

@@ -67,25 +67,34 @@ def ms_deform_attn_torch(value: torch.Tensor, spatial_shapes: Sequence,
 
 class MSDeformAttnFunction(torch.autograd.Function):
     """msda through the CUDA kernels: forward ``csrc/msda_fwd.cu``, backward
-    ``csrc/msda_bwd.cu``. Saves only value, locations and weights; the
-    backward kernel recomputes the bilinear taps (as the JAX path
-    rematerialises them) instead of keeping them alive."""
+    ``csrc/msda_bwd.cu``. Saves only value, locations and weights (the
+    level shapes ride in ``ctx``); the backward kernel recomputes the
+    bilinear taps (as the JAX path rematerialises them) instead of keeping
+    them alive."""
 
     @staticmethod
-    def forward(ctx, value, shapes, level_start, locations, weights):
-        ctx.save_for_backward(value, shapes, level_start, locations, weights)
-        out = _ext.msda_fwd(value, shapes, level_start, locations, weights)
+    def forward(ctx, value, shapes, locations, weights):
+        ctx.shapes = shapes
+        ctx.save_for_backward(value, locations, weights)
+        out = _ext.msda_fwd(value, shapes, locations, weights)
         ms_deform_attn.launches += 1
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        value, shapes, level_start, locations, weights = ctx.saved_tensors
-        grads = _ext.msda_bwd(value, shapes, level_start, locations, weights,
-                              grad_out.float().contiguous())
+        value, locations, weights = ctx.saved_tensors
+        grads = _ext.msda_bwd(value, ctx.shapes, locations, weights,
+                              _aligned(grad_out.float()))
         ms_deform_attn.backward_launches += 1
         grad_value, grad_loc, grad_attn = grads
-        return grad_value, None, None, grad_loc, grad_attn
+        return grad_value, None, grad_loc, grad_attn
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the kernels read it (a copy
+    only where a view starts off a 16-byte boundary)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence,
@@ -112,17 +121,9 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence,
         raise ValueError(f"impl={impl!r} needs CUDA tensors; got "
                          f"{value.device}")
     shapes = _check_shapes(value, spatial_shapes, sampling_locations)
-    starts, n = [], 0
-    for h, w in shapes:
-        starts.append(n)
-        n += h * w
-    meta = torch.tensor([*(s for hw in shapes for s in hw), *starts],
-                        dtype=torch.int32).to(value.device, non_blocking=True)
-    L = len(shapes)
     return MSDeformAttnFunction.apply(
-        value.contiguous(), meta[:2 * L].view(L, 2), meta[2 * L:],
-        sampling_locations.float().contiguous(),
-        attention_weights.float().contiguous())
+        _aligned(value), shapes, _aligned(sampling_locations.float()),
+        _aligned(attention_weights.float()))
 
 
 ms_deform_attn.launches = 0
