@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, train step and encoder distillation
-once on one CUDA card: the flagship (deformable encoder) and its windowed-
-encoder variant.
+once on one CUDA card: the flagship (deformable encoder) in f32 and bf16,
+its from-scratch recipe (trainable BatchNorm), and its windowed-encoder
+variant.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parent DIR   # only phases 1-3 and the comparison
@@ -21,14 +22,18 @@ non-zero):
 4. msda forward kernel against its plain PyTorch version at the main-path
    shapes (encoder, pose decoder, serving joint decoder Q=300, train joint
    decoder Q=450) on uniform-random inputs, plus edge levels (1-row,
-   1-column, 1x1), and on the 11 captured calls; value in f32 and bf16;
-   times from CUDA events, median of 20.
+   1-column, 1x1), the other head sizes at the encoder call (SOIT's seg
+   encoder, one 256-channel head at B=1; D=16 and D=64 over 8 heads), and
+   the 11 captured calls; value in f32 and bf16; times from CUDA events,
+   median of 20.
 5. msda backward kernel against autograd of the plain version at the
-   encoder, pose decoder and train joint decoder shapes and the edge
-   levels, and on the captured calls (g seeded), f32 and bf16; backward
-   times of both.
+   encoder, pose decoder and train joint decoder shapes, the edge levels
+   and the other head sizes, and on the captured calls (g seeded), f32 and
+   bf16; backward times of both.
 6. msda probes, at the encoder call in-model and random, f32 and bf16:
    each kernel, its empty-body twin, the forward without corner loads, the
+   forward with every query of a block on its first query's locations
+   (perfect row sharing, the TPU merged-window probe's counterpart), the
    backward without grad_value reductions (all, shared-table, direct) and
    without per-tap sums, each kernel with nothing staged, and the
    wrapper's host checks per call.
@@ -37,26 +42,42 @@ non-zero):
    autograd level by level: the four flagship levels (B=3, C=256, 8 heads)
    unshifted and shifted, with bucket padding and one fully masked window
    per level; a 1x2 level; head size 8 (C=64) at the tiny config's levels;
-   f32 and bf16. Times per layer of kernel, plain (a loop over the levels),
+   head sizes 16 and 64 (C=128, 512) at the flagship levels (the f32
+   backward at 64, which the kernel leaves out, must refuse); f32 and
+   bf16. Times per layer of kernel, plain (a loop over the levels),
    ``scaled_dot_product_attention`` on the partitioned layout (its level
    calls in turn; timed only) and the bound; then a per-level breakdown.
-8. flagship serve: ``init_detector`` (random weights from a seed) and
-   ``inference_detector`` on 3 synthetic 720x1280 clips (800x1344 bucket):
-   shapes, finiteness, exactly 11 msda launches per clip; then
-   ``impl="cuda"`` against ``impl="torch"`` with TF32 off (keypoints within
-   1e-2 px, keep equal).
-9. flagship train: ``init_trainer``, 8 mini-steps of
+8. flagship serve, f32 then bf16: ``init_detector`` (random weights from a
+   seed) and ``inference_detector`` on 3 synthetic 720x1280 clips (800x1344
+   bucket): shapes, finiteness, exactly 11 msda launches per clip (in bf16
+   all 11 on bf16 values); then ``impl="cuda"`` against ``impl="torch"``
+   with TF32 off: f32 keypoints within 1e-2 px and keep equal; bf16 stage
+   by stage (memory, proposal scores, the decoders given the plain path's
+   top-k and poses) within ``BF16_STAGE_TOL``.
+9. flagship train, f32 then bf16: ``init_trainer``, 8 mini-steps of
    ``dummy_clip_batch(train=True)`` at 800x1344, B=1, 30 GT slots, which is
    one applied update: finite losses, exactly 11+11 msda launches per
-   mini-step, frozen parameters unchanged, every other parameter with a
-   gradient changed; ms/step, host matching share, peak memory; then one
-   mini-step cuda against torch on the weights as initialised (same
-   matches, losses within 1e-4, gradient norm within 1e-3).
-10. windowed serve: phase 8 on the windowed config, 6 window-attention
-   (one per encoder layer, over its 4 levels) and 5 msda launches per clip.
-11. windowed train: phase 9 on the windowed config, 6+6 window-attention
-   and 5+5 msda launches per mini-step.
-12. distill: the flagship teacher and the windowed student
+   mini-step (bf16 values in the bf16 run), frozen parameters unchanged,
+   every other parameter with a gradient changed; ms/step, host matching
+   share, peak memory; then one mini-step cuda against torch on the
+   weights as initialised: f32 the same matches, losses within 1e-4,
+   gradient norm within 1e-3; bf16 on the plain path's top-k and matches,
+   losses within ``BF16_LOSS_TOL``, gradient norm within
+   ``BF16_NORM_TOL``.
+10. from-scratch train: the synthetic recipe (trainable BatchNorm, nothing
+   frozen, backbone at the full lr, no accumulation) at its own 448x768,
+   B=2: 8 mini-steps = 8 updates, 11+11 msda launches each, every
+   parameter with a gradient changed (stem and layer1 included) and every
+   BatchNorm running statistic; then one mini-step cuda against torch
+   (losses 1e-4, gradient norm 1e-3, running statistics 1e-5).
+11. windowed serve: phase 8 on the windowed config, f32 and bf16, 6
+   window-attention (one per encoder layer, over its 4 levels) and 5 msda
+   launches per clip.
+12. windowed train: phase 9 on the windowed config in f32, 6+6
+   window-attention and 5+5 msda launches per mini-step; the cuda-vs-torch
+   mini-step each path on its own top-k, and again both on the plain
+   path's top-k, both at 1e-4.
+13. distill: the flagship teacher and the windowed student
    (``create_distill_state``), 4 steps at 800x1344, B=1: exactly 6 msda
    forward and 6+6 window-attention launches per step, finite MSE, every
    entry outside the encoder bit-identical to the teacher's, the encoder
@@ -64,7 +85,8 @@ non-zero):
    1e-5, gradient norm within 1e-3).
 
 Each run sets every launch count to 0 just before it and reads them just
-after. The last two lines are the kernels' JSON record and the contract line
+after. The last two lines are the kernels' JSON record (launches by run,
+bf16 launches beside them) and the contract line
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -88,6 +110,17 @@ TRAIN_STEPS = 8       # = cumulative_iters of the flagship config
 # and 2 joint-decoder layers
 WINDOW_CALLS, WINDOWED_MSDA_CALLS = 6, 5
 DISTILL_STEPS = 4
+# the from-scratch recipe (trainable BatchNorm, nothing frozen, one update
+# per mini-step) at its own size
+SYNTHETIC_CONFIG = "configs/videopose/pavenet_r50_frames3_synthetic_sm.py"
+SYNTHETIC_HW, SYNTHETIC_BATCH = (448, 768), 2
+# bf16 against the plain path, stage by stage: max abs error within this
+# fraction of the plain output's largest value (bf16 keeps 8 bits: a value
+# moves by up to 0.4% per rounding, and the encoder's memory of either
+# path sits 3-4% of its largest from the f32 memory, tests/test_torch_bf16.py),
+# and the mini-step's losses and gradient norm relative to the plain ones
+BF16_STAGE_TOL = 6e-2
+BF16_LOSS_TOL, BF16_NORM_TOL = 1e-2, 5e-2
 WINDOW = (8, 16)
 IMG_SHAPE = (750, 1333)   # a 720x1280 clip resized into the 800x1344 bucket
 EDGE_WINDOW_LEVEL = (1, 2)
@@ -169,12 +202,19 @@ def msda_bound(backward, value, levels, loc):
 
 
 def kernel_cases():
+    """(name, B, levels, Q, H, P, D) of the msda checks: the flagship's
+    calls, edge levels, and the other head sizes at the encoder call (the
+    flagship levels): SOIT's seg encoder (one 256-channel head, B=1), 128
+    and 512 channels over 8 heads (D=16, 64)."""
     N = sum(h * w for h, w in FLAGSHIP_LEVELS)
     return [("encoder", 3, FLAGSHIP_LEVELS, N, 8, 4, 32),
             ("pose_decoder", 3, FLAGSHIP_LEVELS, 300, 8, 15, 32),
             ("joint_decoder", 3, FLAGSHIP_LEVELS, 300, 8, 4, 32),
             ("joint_decoder_train", 3, FLAGSHIP_LEVELS, 450, 8, 4, 32),
-            ("edge_levels", 2, EDGE_LEVELS, 7, 2, 15, 4)]
+            ("edge_levels", 2, EDGE_LEVELS, 7, 2, 15, 4),
+            ("encoder_h1_d256", 1, FLAGSHIP_LEVELS, N, 1, 4, 256),
+            ("encoder_d16", 3, FLAGSHIP_LEVELS, N, 8, 4, 16),
+            ("encoder_d64", 3, FLAGSHIP_LEVELS, N, 8, 4, 64)]
 
 
 def forward_record(case, v, levels, loc, attn, rel_tol, ms_deform_attn,
@@ -363,11 +403,14 @@ def check_probes(ext, captured):
     random, f32 and bf16: the kernel through its C entry (plan as the
     wrapper makes it), its empty-body twin (same arguments and grid: the
     launch and operand floor), the forward without its corner loads, the
-    backward without its grad_value reductions (all of them, those into
-    the shared table, those made directly) and without its per-tap sums,
-    and the kernel with nothing staged in shared memory; plus the
-    wrapper's host checks and plan per call. The ablation entry points are
-    wrong on purpose and only this phase calls them. Returns records."""
+    forward with every query of a block on its first query's locations
+    (perfect row sharing: the counterpart of the TPU merged-window probe,
+    what locality can still buy), the backward without its grad_value
+    reductions (all of them, those into the shared table, those made
+    directly) and without its per-tap sums, and the kernel with nothing
+    staged in shared memory; plus the wrapper's host checks and plan per
+    call. The ablation entry points are wrong on purpose and only this
+    phase calls them. Returns records."""
     import ctypes
     import torch
     fwd_lib, bwd_lib = ext._load("msda_fwd"), ext._load("msda_bwd")
@@ -407,6 +450,8 @@ def check_probes(ext, captured):
                                           *args, 1),
                        fwd_no_loads_ms=timed(fwd_lib.msda_fwd_ablate, *ptrs,
                                              *args, 2),
+                       fwd_merged_ms=timed(fwd_lib.msda_fwd_ablate, *ptrs,
+                                           *args, 7),
                        fwd_unstaged_ms=timed(fwd_lib.msda_fwd, *ptrs, *bare),
                        fwd_host_us=host_us)
             v, loc, attn, g = bwd_in
@@ -487,12 +532,15 @@ def window_cases():
     """(name, levels (Hl, Wl), B, C, heads, shift) of the window-attention
     launches, each one call over its levels as an encoder layer makes it:
     the four flagship level rasters unshifted and shifted, an edge level
-    smaller than one window, and head size 8 (C=64, 8 heads) at the tiny
-    windowed config's levels."""
+    smaller than one window, head size 8 (C=64, 8 heads) at the tiny
+    windowed config's levels, and head sizes 16 and 64 (C=128, 512) at the
+    flagship levels."""
     return [("layer", FLAGSHIP_LEVELS, 3, 256, 8, False),
             ("layer_shifted", FLAGSHIP_LEVELS, 3, 256, 8, True),
             ("edge", (EDGE_WINDOW_LEVEL,), 3, 256, 8, False),
-            ("d8", TINY_LEVELS, 2, 64, 8, True)]
+            ("d8", TINY_LEVELS, 2, 64, 8, True),
+            ("d16", FLAGSHIP_LEVELS, 3, 128, 8, False),
+            ("d64", FLAGSHIP_LEVELS, 3, 512, 8, False)]
 
 
 def window_inputs(gen, level, B, C, shift, dtype):
@@ -634,6 +682,14 @@ def check_window(ext):
             print("window fwd", json.dumps(rec), flush=True)
             fwd.append(rec)
 
+            if C // heads not in ext.window_head_dims(True, dtype):
+                try:     # a size the backward leaves out raises, naming
+                    ext.window_attn_bwd(qs, ks, vs, keeps, gs, heads)
+                except ValueError as e:
+                    print(f"window bwd {name} {dtype}: refused ({e})",
+                          flush=True)
+                    continue
+                raise AssertionError(f"window bwd {name} {dtype} launched")
             got = ext.window_attn_bwd(qs, ks, vs, keeps, gs, heads)
             torch.cuda.synchronize()
             flat = [x for lv in ins for x in lv]
@@ -704,16 +760,30 @@ def reset_launches():
     from pavenet_tpu_torch.ops.window_attn import window_attention_levels
     for fn in (ms_deform_attn, window_attention_levels):
         fn.launches = fn.backward_launches = 0
+        fn.bf16_launches = fn.bf16_backward_launches = 0
 
 
 def read_launches():
-    """Kernel launches since ``reset_launches``, by kernel."""
+    """Kernel launches since ``reset_launches``, by kernel, and those of
+    them that took bf16 values (``*_bf16``)."""
     from pavenet_tpu_torch.ops.ms_deform_attn import ms_deform_attn
     from pavenet_tpu_torch.ops.window_attn import window_attention_levels
-    return {"msda_fwd": ms_deform_attn.launches,
-            "msda_bwd": ms_deform_attn.backward_launches,
-            "window_attn_fwd": window_attention_levels.launches,
-            "window_attn_bwd": window_attention_levels.backward_launches}
+    out = {}
+    for name, fn in (("msda", ms_deform_attn),
+                     ("window_attn", window_attention_levels)):
+        out.update({f"{name}_fwd": fn.launches,
+                    f"{name}_bwd": fn.backward_launches,
+                    f"{name}_fwd_bf16": fn.bf16_launches,
+                    f"{name}_bwd_bf16": fn.bf16_backward_launches})
+    return out
+
+
+def expect(per_step, dtype):
+    """Expected launches per clip or step: in bf16 every launch is a bf16
+    one."""
+    if dtype != "bf16":
+        return per_step
+    return {**per_step, **{f"{k}_bf16": v for k, v in per_step.items()}}
 
 
 def check_launches(what, got, per_step, steps):
@@ -729,14 +799,15 @@ def tf32(on):
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def serve(smi, config, per_clip):
-    """Serving and its cuda-vs-torch parity on ``config``; returns the
-    serving run's launches."""
+def serve(smi, config, per_clip, dtype="f32"):
+    """Serving in ``dtype`` and its cuda-vs-torch parity on ``config``;
+    returns the serving run's launches and ms/clip."""
     import torch
     from pavenet_tpu_torch.apis import inference_detector, init_detector
     from pavenet_tpu_torch.apis.inference import host_batch
 
-    model = init_detector(str(ROOT / config), device="cuda", seed=0)
+    model = init_detector(str(ROOT / config), device="cuda", seed=0,
+                          dtype=dtype)
     clips = synthetic_clips()
     check_detections(inference_detector(model, clips[0]))   # warm-up
     torch.cuda.synchronize()
@@ -751,62 +822,133 @@ def serve(smi, config, per_clip):
     clip_ms = start.elapsed_time(end) / CLIPS
     for out in outs:
         check_detections(out)
-    check_launches(f"serve {config}, {CLIPS} clips", launches, per_clip,
-                   CLIPS)
+    check_launches(f"serve {config} {dtype}, {CLIPS} clips", launches,
+                   expect(per_clip, dtype), CLIPS)
     batch = {k: torch.from_numpy(v).cuda()
              for k, v in host_batch(clips[1], 3, (1333, 800)).items()}
     model_ms = cuda_ms(lambda: model.forward_test(batch), reps=5, warmup=1)
     print(f"serve {config}: {CLIPS} clips at "
-          f"{tuple(batch['img'].shape[2:4])}, f32, launches "
+          f"{tuple(batch['img'].shape[2:4])}, {dtype}, launches "
           f"{json.dumps(launches)}; {clip_ms:.2f} ms/clip end to end (host "
           f"pipeline included), {model_ms:.2f} ms/clip forward_test | {smi}",
           flush=True)
 
     # full-model parity: plain kernels' versions vs the kernels, TF32 off
     tf32(False)
-    plain = init_detector(str(ROOT / config), device="cuda", impl="torch")
+    plain = init_detector(str(ROOT / config), device="cuda", impl="torch",
+                          dtype=dtype)
     plain.load_state_dict(model.state_dict())
-    with torch.inference_mode():
-        got = model.forward_test(batch)
-        want = plain.forward_test(batch)
-    kpt_err = (got["det_kpts"][..., :2] - want["det_kpts"][..., :2]).abs()
-    kpt_err = kpt_err.max().item()
-    if not kpt_err <= 1e-2 or not torch.equal(got["keep"], want["keep"]):
-        raise AssertionError(f"cuda vs torch model: det_kpts max err "
-                             f"{kpt_err} px, keep equal "
-                             f"{torch.equal(got['keep'], want['keep'])}")
-    print(f"parity {config}: impl=cuda vs impl=torch on the full model, TF32 "
-          f"off: det_kpts max abs err {kpt_err:.3e} px, keep equal",
-          flush=True)
+    if dtype == "bf16":
+        serve_parity_bf16(config, model, plain, batch)
+    else:
+        with torch.inference_mode():
+            got = model.forward_test(batch)
+            want = plain.forward_test(batch)
+        kpt_err = (got["det_kpts"][..., :2]
+                   - want["det_kpts"][..., :2]).abs().max().item()
+        if not kpt_err <= 1e-2 or not torch.equal(got["keep"],
+                                                  want["keep"]):
+            raise AssertionError(
+                f"cuda vs torch model: det_kpts max err {kpt_err} px, keep "
+                f"equal {torch.equal(got['keep'], want['keep'])}")
+        print(f"parity {config}: impl=cuda vs impl=torch on the full model, "
+              f"TF32 off: det_kpts max abs err {kpt_err:.3e} px, keep equal",
+              flush=True)
     tf32(True)
-    return launches
+    return launches, model_ms
 
 
-def train(smi, config, per_step):
-    """``TRAIN_STEPS`` mini-steps (one applied update) on ``config``;
-    returns the run's launches."""
+def rel_err(a, b):
+    """max |a - b| over max |b|, in f32."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+def serve_parity_bf16(config, model, plain, batch):
+    """bf16 serving, kernels against the plain path, stage by stage: the
+    encoder memory and proposal scores; the pose decoder given the plain
+    path's top-k (bf16 proposal scores tie, and a tie decided the other
+    way changes the queries, not the kernels' error); the joint decoder on
+    the plain path's best ``max_per_img`` poses. Each within
+    ``BF16_STAGE_TOL`` of the plain output's largest value."""
+    import torch
+    with torch.inference_mode():
+        want = plain.forward_outputs(batch["img"], batch["img_shape"])
+        own = model.forward_outputs(batch["img"], batch["img_shape"])
+        got = model.forward_outputs(batch["img"], batch["img_shape"],
+                                    topk_idx=want["topk_idx"])
+        M = plain.max_per_img
+        best = want["all_cls_scores"][-1][..., 0].float().topk(M, 1).indices
+        frames = want["frame_kpt_preds"]
+        B, T = frames.shape[:2]
+        ref = torch.gather(frames, 2, best[:, None, :, None].expand(
+            B, T, M, frames.shape[-1])).transpose(1, 2)
+        refined = [m.head.forward_refine(o["memory"], o["mask_flatten"],
+                                         o["valid_ratios"], ref,
+                                         o["spatial_shapes"])
+                   for m, o in ((model, got), (plain, want))]
+    errs = {k: rel_err(got[k], want[k]) for k in (
+        "memory", "enc_cls_scores", "all_cls_scores", "all_kpt_preds",
+        "all_sigma_preds", "frame_kpt_preds")}
+    errs.update({f"refine_{k}": rel_err(a, b) for k, a, b in zip(
+        ("kpts", "scores", "sigmas"), *refined)})
+    bad = {k: e for k, e in errs.items() if not e <= BF16_STAGE_TOL}
+    if bad:
+        raise AssertionError(f"bf16 cuda vs torch {config}: {errs}")
+    same = torch.stack([torch.isin(o, w) for o, w in zip(
+        own["topk_idx"], want["topk_idx"])]).float().mean().item()
+    print(f"parity {config} bf16: impl=cuda vs impl=torch stage by stage, "
+          f"max abs err / max |plain|: {json.dumps(errs)} (limit "
+          f"{BF16_STAGE_TOL}); the kernels' own top-k shares "
+          f"{100 * same:.1f}% of the plain path's selected proposals",
+          flush=True)
+
+
+def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
+          batch_size=1):
+    """``TRAIN_STEPS`` mini-steps of ``dummy_clip_batch(train=True)`` at
+    ``hw``, in ``dtype``, on ``config``: one applied update where the
+    config accumulates 8 mini-steps, eight where it accumulates none.
+    Frozen parameters stay, every parameter with a gradient moves, and
+    every trainable BatchNorm's running statistics move. Returns the run's
+    launches."""
     import numpy as np
     import torch
     from pavenet_tpu_torch.apis import init_trainer, train_step
-    from pavenet_tpu_torch.apis.train import _param_label
+    from pavenet_tpu_torch.apis.train import param_labels
     from pavenet_tpu_torch.core.assigner import hungarian_assign
+    from pavenet_tpu_torch.models.backbones.resnet import BatchNorm
     from pavenet_tpu_torch.models.zoo import dummy_clip_batch
 
-    state = init_trainer(str(ROOT / config), device="cuda", seed=0)
-    if state.accumulate_steps != TRAIN_STEPS:
-        raise AssertionError(f"cumulative_iters {state.accumulate_steps}")
+    state = init_trainer(str(ROOT / config), device="cuda", seed=0,
+                         dtype=dtype)
+    k = state.accumulate_steps
+    if TRAIN_STEPS % k:
+        raise AssertionError(f"cumulative_iters {k}")
     model = state.model
+    labels = param_labels(model)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats = {n: b.clone() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))
+             and isinstance(model.get_submodule(n.rsplit(".", 1)[0]),
+                            BatchNorm)}
     rng = np.random.RandomState(0)
-    batches = [dummy_clip_batch(rng, max_gt=state.max_gt, train=True)
+    batches = [dummy_clip_batch(rng, batch_size, height=hw[0], width=hw[1],
+                                max_gt=state.max_gt, train=True)
                for _ in range(TRAIN_STEPS)]
+    # with one update per mini-step: the parameters whose first gradient
+    # is well above Adam's eps must move (hooks on the first step only)
+    first_grad, hooks = {}, []
+    if k == 1:
+        hooks = [p.register_hook(lambda g, n=n: first_grad.__setitem__(
+            n, g.detach().abs().max())) for n, p in model.named_parameters()]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     hungarian_assign.seconds = 0.0
     step_ms, wall_s, grads_seen = [], [], None
     for i, batch in enumerate(batches):
-        if i == TRAIN_STEPS - 1:
+        if k > 1 and i == TRAIN_STEPS - 1:
             # parameters whose clipped mean gradient so far is well above
             # Adam's eps: the update must move them
             norm = torch.linalg.vector_norm(torch.stack(
@@ -824,6 +966,9 @@ def train(smi, config, per_step):
         torch.cuda.synchronize()
         wall_s.append(time.perf_counter() - t0)
         step_ms.append(start.elapsed_time(end))
+        for h in hooks:
+            h.remove()
+        hooks = []
         bad = {k: v.item() for k, v in losses.items()
                if not torch.isfinite(v)}
         if bad:
@@ -831,29 +976,38 @@ def train(smi, config, per_step):
     launches = read_launches()
     match_s = hungarian_assign.seconds
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    check_launches(f"train {config}, {TRAIN_STEPS} mini-steps", launches,
-                   per_step, TRAIN_STEPS)
-    if (state.updates, state.mini_step) != (1, 0):
+    check_launches(f"train {config} {dtype}, {TRAIN_STEPS} mini-steps",
+                   launches, expect(per_step, dtype), TRAIN_STEPS)
+    if (state.updates, state.mini_step) != (TRAIN_STEPS // k, 0):
         raise AssertionError(f"{state.updates} updates, mini-step "
-                             f"{state.mini_step}: expected one update")
+                             f"{state.mini_step}: expected "
+                             f"{TRAIN_STEPS // k}")
+    if k == 1:
+        grads_seen = {n for n, g in first_grad.items() if g.item() > 1e-6}
     frozen_moved, stuck = [], []
     for n, p in model.named_parameters():
         moved = not torch.equal(before[n], p.detach())
-        if _param_label(n, model.frozen_stages) == "frozen":
+        if labels[n] == "frozen":
             if moved:
                 frozen_moved.append(n)
         elif n in grads_seen and not moved:
             stuck.append(n)
-    if frozen_moved or stuck:
+    stats_stuck = [n for n, b in stats.items()
+                   if torch.equal(b, model.get_buffer(n))]
+    if frozen_moved or stuck or stats_stuck:
         raise AssertionError(f"frozen parameters changed: {frozen_moved}; "
-                             f"parameters with a gradient unchanged: {stuck}")
-    n_frozen = sum(_param_label(n, model.frozen_stages) == "frozen"
-                   for n in before)
-    print(f"train {config} losses (last mini-step): "
+                             f"parameters with a gradient unchanged: {stuck}"
+                             f"; running statistics unchanged: "
+                             f"{stats_stuck}")
+    n_frozen = sum(v == "frozen" for v in labels.values())
+    early = sum(n.startswith(("backbone.conv1", "backbone.bn1",
+                              "backbone.layer1_")) for n in grads_seen)
+    print(f"train {config} {dtype} losses (last mini-step): "
           + json.dumps({k: round(v.item(), 5) for k, v in losses.items()}),
           flush=True)
-    print(f"train {config}: {TRAIN_STEPS} mini-steps at 800x1344, B=1, f32, "
-          f"{state.max_gt} GT slots, one applied update; launches "
+    print(f"train {config}: {TRAIN_STEPS} mini-steps at {hw[0]}x{hw[1]}, "
+          f"B={batch_size}, {dtype}, {state.max_gt} GT slots, "
+          f"{state.updates} applied update(s); launches "
           f"{json.dumps(launches)}; "
           f"{statistics.median(step_ms[1:]):.2f} ms/step (median of steps "
           f"2-{TRAIN_STEPS}, CUDA events; {min(step_ms[1:]):.2f}-"
@@ -862,66 +1016,107 @@ def train(smi, config, per_step):
           f"{100 * match_s / sum(wall_s):.2f}% of the wall time; peak "
           f"memory {peak_gb:.2f} GiB; {n_frozen} frozen tensors unchanged, "
           f"all {len(grads_seen)} of {len(before) - n_frozen} trained tensors "
-          f"with a clipped gradient above 1e-5 changed | {smi}",
+          f"with a clear gradient changed ({early} in the stem and layer1), "
+          f"all {len(stats)} trainable BatchNorm statistics changed | {smi}",
           flush=True)
-    return launches
+    return launches, statistics.median(step_ms[1:])
 
 
-def train_parity(config, max_gt=30):
+def train_parity(config, max_gt=30, dtype="f32", hw=(800, 1344),
+                 batch_size=1, fixed_topk=False, limits=(1e-4, 1e-3)):
     """impl=cuda vs impl=torch on one mini-step of the model as initialised
     from seed 0 (the trained weights depend on the order of the msda
     backward's atomics, so a run would compare other weights each time),
-    dropout 0 (eval mode), TF32 off."""
+    dropout 0 (eval mode), TF32 off: the same matches, the losses within
+    ``limits[0]`` and the gradient norm within ``limits[1]`` relative, and
+    trainable BatchNorm's new running statistics within 1e-5 of their
+    scale. ``fixed_topk``: both paths take the plain path's top-k
+    proposals (``topk_idx``), so that a near-tie of two proposal scores
+    cannot pick other queries. In bf16 both paths take the plain path's
+    top-k and matches (bf16 scores and costs tie), and the kernels' own
+    matches are reported. Returns the largest loss error."""
     import numpy as np
     import torch
     from pavenet_tpu_torch.apis.inference import build_model
     from pavenet_tpu_torch.apis.train import to_device
+    from pavenet_tpu_torch.models.backbones.resnet import BatchNorm
     from pavenet_tpu_torch.models.zoo import dummy_clip_batch
 
     tf32(False)
-    cuda_model = build_model(str(ROOT / config), impl="cuda").cuda().eval()
-    plain = build_model(str(ROOT / config), impl="torch").cuda().eval()
-    batch = to_device(dummy_clip_batch(np.random.RandomState(1),
-                                       max_gt=max_gt, train=True), "cuda")
-    results, outs = [], []
-    for model in (cuda_model, plain):
+    cuda_model, plain = (build_model(str(ROOT / config), impl=impl,
+                                     dtype=dtype).cuda().eval()
+                         for impl in ("cuda", "torch"))
+    batch = to_device(dummy_clip_batch(
+        np.random.RandomState(1), batch_size, height=hw[0], width=hw[1],
+        max_gt=max_gt, train=True), "cuda")
+    bf16 = dtype == "bf16"
+    topk = None
+    if fixed_topk or bf16:
+        if not plain.norm_eval:
+            raise ValueError("a top-k taken ahead would move trainable "
+                             "BatchNorm statistics")
         with torch.no_grad():
-            outs.append(model.forward_outputs(batch["img"],
-                                              batch["img_shape"]))
-            targets = model.match(outs[-1], batch)
+            topk = plain.forward_outputs(batch["img"], batch["img_shape"],
+                                         train=True)["topk_idx"]
+    results, outs, plain_targets = {}, {}, []
+    for name, model in (("torch", plain), ("cuda", cuda_model)):
+        with torch.no_grad():
+            outs[name] = model.forward_outputs(batch["img"],
+                                               batch["img_shape"],
+                                               topk_idx=topk)
+            targets = model.match(outs[name], batch)
+        if bf16 and name == "torch":   # the plain path's matches, kept
+            match = model.match
+            model.match = lambda o, b: plain_targets.append(match(o, b)) \
+                or plain_targets[-1]
+        elif bf16:
+            model.match = lambda o, b: plain_targets[-1]
         model.zero_grad(set_to_none=True)
-        losses = model.forward_train(batch)
+        losses = model.forward_train(batch, topk_idx=topk)
         losses["loss"].backward()
         norm = torch.linalg.vector_norm(torch.stack([
             p.grad.norm() for p in model.parameters() if p.grad is not None]))
-        results.append(([t.query_idx for t in targets],
-                        {k: v.item() for k, v in losses.items()},
-                        norm.item()))
+        stats = {n: b.float() for n, b in model.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))
+                 and isinstance(model.get_submodule(n.rsplit(".", 1)[0]),
+                                BatchNorm)}
+        results[name] = ([t.query_idx for t in targets],
+                         {k: v.item() for k, v in losses.items()},
+                         norm.item(), stats)
         model.zero_grad(set_to_none=True)
-    (idx_c, loss_c, norm_c), (idx_t, loss_t, norm_t) = results
-    if not all(torch.equal(a, b) for a, b in zip(idx_c, idx_t)):
+    (idx_c, loss_c, norm_c, st_c), (idx_t, loss_t, norm_t, st_t) = (
+        results["cuda"], results["torch"])
+    same = all(torch.equal(a, b) for a, b in zip(idx_c, idx_t))
+    if not same and not bf16:
         raise AssertionError("cuda and torch train steps matched different "
                              "queries")
     # where the two outputs part: the encoder memory, the proposal scores
     # (before top-k), the top-k proposals (init_reference) and the last
     # decoder layer's scores, as max abs error over max abs value
-    parts = {k: ((outs[0][k] - outs[1][k]).abs().max()
-                 / outs[1][k].abs().max()).item()
+    parts = {k: rel_err(outs["cuda"][k], outs["torch"][k])
              for k in ("memory", "enc_cls_scores", "init_reference",
                        "all_cls_scores")}
     rel = {k: abs(loss_c[k] - loss_t[k]) / abs(loss_t[k]) for k in loss_t}
-    bad = {k: r for k, r in rel.items() if not r <= 1e-4}
+    bad = {k: r for k, r in rel.items() if not r <= limits[0]}
     norm_rel = abs(norm_c - norm_t) / norm_t
-    if bad or not norm_rel <= 1e-3:
+    st_err = max([rel_err(st_c[n], st_t[n]) for n in st_t] + [0.0])
+    if bad or not norm_rel <= limits[1] or not st_err <= 1e-5:
         raise AssertionError(f"cuda vs torch train step: loss rel errors "
                              f"{rel}, grad norm {norm_c} vs {norm_t}; "
-                             f"outputs {parts}")
-    print(f"train parity {config}: impl=cuda vs impl=torch, one mini-step, "
-          f"dropout 0, TF32 off: matched queries equal in {len(idx_c)} sets, "
-          f"max loss rel err {max(rel.values()):.3e}, grad norm "
-          f"{norm_c:.6g} vs {norm_t:.6g} (rel {norm_rel:.3e}); outputs "
-          f"{json.dumps(parts)}", flush=True)
+                             f"running statistics {st_err}; outputs {parts}")
+    how = ("both on the plain path's top-k and matches" if bf16 else
+           "both on the plain path's top-k" if fixed_topk else
+           "each path its own top-k")
+    print(f"train parity {config} {dtype}: impl=cuda vs impl=torch, one "
+          f"mini-step at {hw[0]}x{hw[1]}, B={batch_size}, dropout 0, TF32 "
+          f"off, {how}: matched queries {'equal' if same else 'differ'} in "
+          f"{len(idx_c)} sets (the kernels' own), max loss rel err "
+          f"{max(rel.values()):.3e} (limit {limits[0]}), grad norm "
+          f"{norm_c:.6g} vs {norm_t:.6g} (rel {norm_rel:.3e}, limit "
+          f"{limits[1]}); {len(st_t)} running statistics within "
+          f"{st_err:.3e}; outputs {json.dumps(parts)}", flush=True)
     tf32(True)
+    return max(rel.values())
 
 
 def distill(smi):
@@ -1079,51 +1274,76 @@ def main(argv=None):
     # 4-7. kernels vs plain, then what bounds the msda kernels
     fwd = check_forward(ms_deform_attn, ms_deform_attn_torch, captured)
     bwd = check_backward(_ext, ms_deform_attn_torch, captured)
-    check_probes(_ext, captured)
+    probes = check_probes(_ext, captured)
     del captured
     torch.cuda.empty_cache()
     win_fwd, win_bwd, _ = check_window(_ext)
 
-    # 8-9. flagship (deformable) serve and train
+    # 8-9. flagship (deformable) serve and train, f32 then bf16
     flagship = {"msda_fwd": CALLS_PER_CLIP, "msda_bwd": CALLS_PER_CLIP}
-    serve_launches = serve(smi, CONFIG, {"msda_fwd": CALLS_PER_CLIP})
-    train_launches = train(smi, CONFIG, flagship)
+    runs = {}
+    serve_ms = {}
+    for dtype in ("f32", "bf16"):
+        runs[f"flagship_serve_{dtype}"], serve_ms[("flagship", dtype)] = \
+            serve(smi, CONFIG, {"msda_fwd": CALLS_PER_CLIP}, dtype)
+    runs["flagship_train_f32"], _ = train(smi, CONFIG, flagship)
     train_parity(CONFIG)
+    runs["flagship_train_bf16"], _ = train(smi, CONFIG, flagship, "bf16")
+    train_parity(CONFIG, dtype="bf16", limits=(BF16_LOSS_TOL, BF16_NORM_TOL))
     torch.cuda.empty_cache()
 
-    # 10-12. the windowed variant: serve, train, distill
+    # 10. the from-scratch recipe: trainable BatchNorm, nothing frozen
+    runs["synthetic_train_f32"], _ = train(
+        smi, SYNTHETIC_CONFIG, flagship, hw=SYNTHETIC_HW,
+        batch_size=SYNTHETIC_BATCH)
+    train_parity(SYNTHETIC_CONFIG, hw=SYNTHETIC_HW,
+                 batch_size=SYNTHETIC_BATCH)
+    torch.cuda.empty_cache()
+
+    # 11-13. the windowed variant: serve (f32, bf16), train, distill
     windowed = {"msda_fwd": WINDOWED_MSDA_CALLS,
                 "window_attn_fwd": WINDOW_CALLS}
-    w_serve = serve(smi, WINDOWED_CONFIG, windowed)
-    w_train = train(smi, WINDOWED_CONFIG, dict(
+    for dtype in ("f32", "bf16"):
+        runs[f"windowed_serve_{dtype}"], serve_ms[("windowed", dtype)] = \
+            serve(smi, WINDOWED_CONFIG, windowed, dtype)
+    runs["windowed_train_f32"], _ = train(smi, WINDOWED_CONFIG, dict(
         windowed, msda_bwd=WINDOWED_MSDA_CALLS,
         window_attn_bwd=WINDOW_CALLS))
     train_parity(WINDOWED_CONFIG)
+    train_parity(WINDOWED_CONFIG, fixed_topk=True)
     torch.cuda.empty_cache()
-    d_launches = distill(smi)
+    runs["distill_f32"] = distill(smi)
+    print("serve forward_test ms/clip, f32 / bf16: " + ", ".join(
+        f"{m} {serve_ms[(m, 'f32')]:.2f} / {serve_ms[(m, 'bf16')]:.2f}"
+        for m in ("flagship", "windowed")) + f" | {smi}", flush=True)
 
-    def runs(name):
-        return {"flagship_serve": serve_launches[name],
-                "flagship_train": train_launches[name],
-                "windowed_serve": w_serve[name],
-                "windowed_train": w_train[name],
-                "distill": d_launches[name]}
+    def by_run(name):
+        return {run: {"launches": counts[name],
+                      "bf16_launches": counts[f"{name}_bf16"]}
+                for run, counts in runs.items()}
 
+    merged, = [r for r in probes if r["inputs"] == "in_model"
+               and r["dtype"] == "float32"]
     print(json.dumps({"kernels": [
-        kernel_record("msda_fwd", fwd, train_launches["msda_fwd"],
+        kernel_record("msda_fwd", fwd,
+                      runs["flagship_train_f32"]["msda_fwd"],
                       "pavenet_tpu/ops/pallas/msda_cs.py:398, "
                       "pavenet_tpu/ops/pallas/msda.py:334",
-                      launches_by_run=runs("msda_fwd")),
-        kernel_record("msda_bwd", bwd, train_launches["msda_bwd"],
+                      launches_by_run=by_run("msda_fwd"),
+                      merged_probe_ms_in_model=merged["fwd_merged_ms"]),
+        kernel_record("msda_bwd", bwd,
+                      runs["flagship_train_f32"]["msda_bwd"],
                       "pavenet_tpu/ops/pallas/msda_cs.py:662, "
                       "pavenet_tpu/ops/pallas/msda.py:490",
-                      launches_by_run=runs("msda_bwd")),
-        kernel_record("window_attn_fwd", win_fwd, w_train["window_attn_fwd"],
+                      launches_by_run=by_run("msda_bwd")),
+        kernel_record("window_attn_fwd", win_fwd,
+                      runs["windowed_train_f32"]["window_attn_fwd"],
                       "pavenet_tpu/ops/pallas/window_attn.py:173",
-                      launches_by_run=runs("window_attn_fwd")),
-        kernel_record("window_attn_bwd", win_bwd, w_train["window_attn_bwd"],
+                      launches_by_run=by_run("window_attn_fwd")),
+        kernel_record("window_attn_bwd", win_bwd,
+                      runs["windowed_train_f32"]["window_attn_bwd"],
                       "pavenet_tpu/ops/pallas/window_attn.py:193",
-                      launches_by_run=runs("window_attn_bwd")),
+                      launches_by_run=by_run("window_attn_bwd")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,6 +12,10 @@ The update follows the JAX package's optax chain:
   the copied backbone, neck and ``level_embeds`` included;
 - then AdamW (weight decay on every trained tensor) on ``head.encoder_layer*``
   only; the other parameters get no update.
+
+Models built in bf16 (``dtype``) take part unchanged: the loss casts both
+memories to float32, and a student built from a config takes the
+teacher's activation dtype.
 """
 from __future__ import annotations
 
@@ -95,10 +99,11 @@ def create_distill_state(student: Union[str, Mapping, VideoPoseDetector],
                          learning_rate: float = 1e-4,
                          grad_clip: float = 0.1) -> DistillState:
     """The student (a model, or a config built with a random init from
-    ``seed``) with every shared entry copied from ``teacher``, on the
-    teacher's device, and its encoder-only optimizer."""
+    ``seed`` in the teacher's activation dtype) with every shared entry
+    copied from ``teacher``, on the teacher's device, and its encoder-only
+    optimizer."""
     if not isinstance(student, VideoPoseDetector):
-        student = build_model(student, seed)
+        student = build_model(student, seed, dtype=teacher.dtype)
     student.load_state_dict(student_from_teacher(student.state_dict(),
                                                  teacher.state_dict()),
                             strict=True)

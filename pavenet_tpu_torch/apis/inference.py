@@ -1,6 +1,7 @@
 """Clip inference API (as ``pavenet_tpu/apis/inference.py``).
 
-``init_detector(config, device)`` -> model on the device, eval mode;
+``init_detector(config, device, dtype=None)`` -> model on the device, eval
+mode, in the activation dtype of ``dtype`` or the config's ``act_dtype``;
 ``inference_detector(model, imgs)`` -> detections for one clip. The host
 pipeline (``datasets/pipelines/transforms.py``) is the port's own copy of
 the JAX package's, so both packages see the same batch.
@@ -12,7 +13,7 @@ from typing import Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, resolve_act_dtype
 from ..datasets.pipelines.transforms import (
     DEFAULT_BUCKETS, FormatBatch, LoadClip, Normalize, PadToBucket, Resize)
 from ..models.builder import build_detector
@@ -21,17 +22,22 @@ from ..utils import weight_convert
 
 
 def build_model(config: Union[str, Mapping], seed: int = 0,
-                variables: Optional[Mapping] = None,
-                impl: str = "auto") -> VideoPoseDetector:
+                variables: Optional[Mapping] = None, impl: str = "auto",
+                dtype: Optional[str] = None) -> VideoPoseDetector:
     """Build the detector from a config file or ``Config``, on the CPU.
 
     Weights: ``variables`` (a JAX ``{'params', 'batch_stats'}`` tree of numpy
     arrays) when given, else a random init from ``torch.Generator(seed)``
-    that follows the JAX initialisers' fixed values.
+    that follows the JAX initialisers' fixed values. ``dtype`` ('f32',
+    'bf16', their long names or a ``torch.dtype``; None follows the config's
+    ``act_dtype``, then float32) is the activation dtype; the parameters
+    stay float32.
     """
     if isinstance(config, str):
         config = Config.fromfile(config)
-    model = build_detector(config["model"], impl=impl)
+    if not isinstance(dtype, torch.dtype):
+        dtype = resolve_act_dtype(config, dtype)
+    model = build_detector(config["model"], impl=impl, dtype=dtype)
     model.init_weights(torch.Generator().manual_seed(seed))
     if variables is not None:
         weight_convert.load_jax_variables(model, variables)
@@ -39,10 +45,11 @@ def build_model(config: Union[str, Mapping], seed: int = 0,
 
 
 def init_detector(config: Union[str, Mapping], device="cuda", seed: int = 0,
-                  variables: Optional[Mapping] = None,
-                  impl: str = "auto") -> VideoPoseDetector:
+                  variables: Optional[Mapping] = None, impl: str = "auto",
+                  dtype: Optional[str] = None) -> VideoPoseDetector:
     """``build_model`` on ``device``, in eval mode."""
-    return build_model(config, seed, variables, impl).to(device).eval()
+    return build_model(config, seed, variables, impl,
+                       dtype).to(device).eval()
 
 
 def host_batch(imgs, num_frames: int, img_scale=(1333, 800)) -> dict:

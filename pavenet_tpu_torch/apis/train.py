@@ -3,8 +3,8 @@
 global-norm clipping and gradient accumulation.
 
 The JAX package runs ``optax.MultiSteps(chain(clip_by_global_norm,
-multi_transform({base, backbone, slow: adamw, frozen: set_to_zero})))``.
-Its semantics, kept here:
+multi_transform({base, backbone, backbone_norm, slow: adamw, frozen:
+set_to_zero})))``. Its semantics, kept here:
 
 - the clip norm is taken over every gradient, the frozen parameters' ones
   included (stem, ``layer1`` and every frozen BatchNorm affine); frozen
@@ -13,7 +13,12 @@ Its semantics, kept here:
   update is applied every k-th mini-batch;
 - the lr schedule counts applied updates, not mini-batches;
 - weight decay 1e-4 on every trained parameter, biases, norms and
-  embeddings included (decoupled, as ``torch.optim.AdamW``).
+  embeddings included (decoupled, as ``torch.optim.AdamW``), except the
+  affines of trainable BatchNorm (``backbone_norm``: backbone lr, no decay);
+- trainable BatchNorm updates its running statistics in every mini-step's
+  forward, whether the step applies an update or only accumulates;
+- parameters and optimizer state stay float32 whatever the model's
+  activation dtype.
 """
 from __future__ import annotations
 
@@ -30,11 +35,16 @@ from ..models.layers.transformer import Dropout
 from .inference import build_model
 
 
-def _param_label(name: str, frozen_stages: int = 1) -> str:
+def _param_label(name: str, frozen_stages: int = 1,
+                 freeze_backbone_neck: bool = False,
+                 trainable_bn: bool = False) -> str:
     """Optimizer group of a parameter from its dotted name, by the JAX
-    package's rule on the parameter path (frozen-BatchNorm models):
-    'frozen', 'backbone' (lr x0.1), 'slow' (offsets, lr x0.1) or 'base'."""
+    package's rule on the parameter path: 'frozen', 'backbone' (backbone
+    lr), 'backbone_norm' (trainable BatchNorm affines: backbone lr, no
+    weight decay), 'slow' (offsets, lr x0.1) or 'base'."""
     keys = name.split(".")
+    if freeze_backbone_neck and ("backbone" in keys or "neck" in keys):
+        return "frozen"       # VideoPoseV2
     if "backbone" in keys:
         # only the backbone's direct child decides: every block has inner
         # conv1/bn1 modules that must not match
@@ -46,7 +56,7 @@ def _param_label(name: str, frozen_stages: int = 1) -> str:
             return "frozen"
         joined = "/".join(keys)
         if "/bn" in joined or "downsample_bn" in joined:
-            return "frozen"
+            return "backbone_norm" if trainable_bn else "frozen"
         return "backbone"
     if "sampling_offsets" in keys or "reference_points" in keys:
         return "slow"
@@ -107,21 +117,32 @@ def build_lr_schedule(lr_config: Mapping, base_lr: float,
     return schedule
 
 
-def build_optimizer(model: torch.nn.Module, weight_decay: float = 1e-4,
+def param_labels(model: VideoPoseDetector) -> Dict[str, str]:
+    """``_param_label`` of every parameter, with the freezing flags read off
+    the model (``frozen_stages``, ``norm_eval``, ``freeze_backbone_neck``),
+    as ``tools/train.py`` reads them."""
+    return {name: _param_label(name, model.frozen_stages,
+                               model.freeze_backbone_neck,
+                               not model.norm_eval)
+            for name, _ in model.named_parameters()}
+
+
+def build_optimizer(model: VideoPoseDetector, weight_decay: float = 1e-4,
                     backbone_lr_mult: float = 0.1,
-                    offsets_lr_mult: float = 0.1,
-                    frozen_stages: int = 1) -> torch.optim.AdamW:
-    """AdamW over the 'base', 'backbone' and 'slow' groups, each with its
-    ``lr_mult``; frozen parameters are in no group."""
+                    offsets_lr_mult: float = 0.1) -> torch.optim.AdamW:
+    """AdamW over the 'base', 'backbone', 'backbone_norm' (no weight decay)
+    and 'slow' groups, each with its ``lr_mult``; frozen parameters are in
+    no group."""
     mults = {"base": 1.0, "backbone": backbone_lr_mult,
-             "slow": offsets_lr_mult}
+             "backbone_norm": backbone_lr_mult, "slow": offsets_lr_mult}
     groups = {label: [] for label in mults}
+    labels = param_labels(model)
     for name, p in model.named_parameters():
-        label = _param_label(name, frozen_stages)
-        if label != "frozen":
-            groups[label].append(p)
+        if labels[name] != "frozen":
+            groups[labels[name]].append(p)
     return torch.optim.AdamW(
-        [dict(params=groups[k], lr_mult=m, label=k)
+        [dict(params=groups[k], lr_mult=m, label=k,
+              weight_decay=0.0 if k == "backbone_norm" else weight_decay)
          for k, m in mults.items() if groups[k]],
         lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
 
@@ -143,16 +164,20 @@ class TrainState:
 
 def init_trainer(config: Union[str, Mapping], device="cuda", seed: int = 0,
                  variables: Optional[Mapping] = None, impl: str = "auto",
-                 steps_per_epoch: int = 20) -> TrainState:
+                 steps_per_epoch: int = 20,
+                 dtype: Optional[str] = None) -> TrainState:
     """Model (``variables`` or a random init from ``seed``) on ``device`` in
     train mode, with the optimizer, schedule and accumulation of the
     config's ``optimizer``, ``optimizer_config``, ``lr_config`` and
     ``runner`` (as ``tools/train.py``); dropout masks come from a generator
     seeded with ``seed``. ``steps_per_epoch`` (mini-batches) places the
-    schedule's epoch boundaries."""
+    schedule's epoch boundaries. ``dtype`` is the activation dtype (as
+    ``build_model``; ``tools/train.py --dtype``); parameters and optimizer
+    state stay float32."""
     if isinstance(config, str):
         config = Config.fromfile(config)
-    model = build_model(config, seed, variables, impl).to(device).train()
+    model = build_model(config, seed, variables, impl,
+                        dtype).to(device).train()
     opt_cfg = config.get("optimizer", {})
     hook_cfg = config.get("optimizer_config", {})
     custom = (opt_cfg.get("paramwise_cfg", {}) or {}).get("custom_keys", {})
@@ -163,8 +188,7 @@ def init_trainer(config: Union[str, Mapping], device="cuda", seed: int = 0,
         model, weight_decay=opt_cfg.get("weight_decay", 1e-4),
         backbone_lr_mult=custom.get("backbone", {}).get("lr_mult", 0.1),
         offsets_lr_mult=custom.get("sampling_offsets", {}).get("lr_mult",
-                                                               0.1),
-        frozen_stages=model.frozen_stages)
+                                                               0.1))
     generator = torch.Generator(device=device).manual_seed(seed)
     for m in model.modules():
         if isinstance(m, Dropout):

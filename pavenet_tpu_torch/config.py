@@ -3,7 +3,9 @@
 
 A config is a python file whose top-level variables form a dict; ``_base_``
 lists parent files that are deep-merged (child wins) and ``_delete_=True``
-inside a dict drops the inherited value.
+inside a dict drops the inherited value. ``resolve_act_dtype`` reads the
+model's activation dtype from a config (the JAX package keeps it in its
+``models/builder.py``).
 """
 from __future__ import annotations
 
@@ -12,7 +14,9 @@ import importlib.util
 import os
 import sys
 import types
-from typing import Any, Dict
+from typing import Any, Dict, Optional
+
+import torch
 
 DELETE_KEY = "_delete_"
 BASE_KEY = "_base_"
@@ -101,3 +105,20 @@ class Config(ConfigDict):
     @staticmethod
     def fromfile(filename: str) -> "Config":
         return Config(_to_config_dict(_file2dict(filename)))
+
+
+_DTYPE_NAMES = {
+    "f32": torch.float32, "float32": torch.float32, "fp32": torch.float32,
+    "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+}
+
+
+def resolve_act_dtype(cfg, override: Optional[str] = None) -> torch.dtype:
+    """The model's activation dtype (as ``pavenet_tpu/models/builder.py::
+    resolve_act_dtype``): ``override`` ('f32'/'bf16' and their long names)
+    wins; None or 'auto' falls back to the config's top-level ``act_dtype``
+    key, then float32. An unknown name raises ``KeyError``."""
+    if override and override != "auto":
+        return _DTYPE_NAMES[override]
+    name = (cfg or {}).get("act_dtype", "float32")
+    return _DTYPE_NAMES[str(name)]

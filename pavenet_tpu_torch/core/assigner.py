@@ -20,9 +20,9 @@ import torch
 from ..ops.lap import hungarian_masked
 
 
-def _factor(img_shape):
-    """(B, 2) (h, w) -> (B, 1, 1, 2) float (w, h)."""
-    return img_shape.flip(-1).float()[:, None, None, :]
+def _factor(img_shape, dtype=torch.float32):
+    """(B, 2) (h, w) -> (B, 1, 1, 2) (w, h) in ``dtype``."""
+    return img_shape.flip(-1).to(dtype)[:, None, None, :]
 
 
 def focal_cls_cost(cls_logits, gamma=2.0, alpha=0.25, eps=1e-12,
@@ -64,8 +64,9 @@ def pose_match_cost(cls_logits, kpt_pred, gt_kpts, gt_areas, img_shape,
                     oks_weight=7.0):
     """(B, Q, G) cost = focal + keypoint L1 + (-OKS); non-finite -> 1e4.
     kpt_pred (B, Q, K, 2) normalised; gt_kpts (B, G, K, 3) unnormalised;
-    img_shape (B, 2) = (h, w)."""
-    factor = _factor(img_shape)
+    img_shape (B, 2) = (h, w). In the predictions' dtypes, as the JAX
+    costs (the image size in the keypoints' dtype)."""
+    factor = _factor(img_shape, kpt_pred.dtype)
     gt_xy = gt_kpts[..., :2]
     vis = gt_kpts[..., 2]
     cost = focal_cls_cost(cls_logits, weight=cls_weight)[..., None]

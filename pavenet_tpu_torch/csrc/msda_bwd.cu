@@ -52,6 +52,12 @@
 // tap it owns) and that lane writes them, so grad_loc and grad_attn need
 // no atomics and no zeroing.  grad_value is an f32 scratch that the wrapper
 // zeroes and casts to the value's type.
+// Heads wider than 32 channels (D = 64, 128, 256) run in passes of 32: an
+// item's 8 lanes take channels 32p..32p+31 in pass p, so the registers a
+// lane holds (g, the per-tap sums) stay those of D = 32; each pass
+// recomputes the taps' geometry, and the lane that owns a tap writes its
+// sums in pass 0 and adds the later passes' to them (the same thread, so
+// no atomics).
 #include "msda_common.cuh"
 
 namespace {
@@ -108,7 +114,10 @@ __global__ void __launch_bounds__(kMaxThreads)
                     float* __restrict__ grad_value,
                     float* __restrict__ grad_loc,
                     float* __restrict__ grad_attn, const Table tb) {
-  constexpr int kVec = Lanes<D, 4>::kVec, kGroup = Lanes<D, 4>::kGroup;
+  constexpr int kPassD = D < 32 ? D : 32;  // channels of one pass
+  constexpr int kPasses = D / kPassD;
+  constexpr int kVec = Lanes<kPassD, 4>::kVec;
+  constexpr int kGroup = Lanes<kPassD, 4>::kGroup;
   constexpr bool kSums = kMode != kNoSums;
   constexpr bool kShared = kMode != kNoScatter && kMode != kNoShared;
   constexpr bool kDirect = kMode != kNoScatter && kMode != kNoDirect;
@@ -136,19 +145,21 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int slots = blockDim.x / kGroup;
   const int rot = ((threadIdx.x & 31) / kGroup) & (kVec - 1);  // item in warp
   const int LP = tb.L * tb.P;
-  for (int q0 = q_begin; q0 < q_end; q0 += slots) {  // block-uniform
+  for (int q0 = q_begin; q0 < q_end; q0 += slots)  // block-uniform
+  for (int pass = 0; pass < kPasses; ++pass) {
     const int q = q0 + slot;
     const bool active = q < q_end;
     const int64_t bqh = ((int64_t)b * tb.Q + (active ? q : q0)) * tb.H + h;
     const float* lp = loc + bqh * LP * 2;
     const float* ap = attn + bqh * LP;
+    const int ch = pass * kPassD + g * kVec;  // this lane's first channel
     float gr[kVec];
 #pragma unroll
     for (int e = 0; e < kVec; e += 4) {
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (active)
-        x = __ldg(reinterpret_cast<const float4*>(grad_out + bqh * D +
-                                                  g * kVec + e));
+        x = __ldg(reinterpret_cast<const float4*>(grad_out + bqh * D + ch +
+                                                  e));
       gr[e] = x.x; gr[e + 1] = x.y; gr[e + 2] = x.z; gr[e + 3] = x.w;
     }
     for (int t0 = 0; t0 < LP; t0 += kGroup) {
@@ -175,8 +186,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
               if (m >> c & 1) {
-                load_vec<true>(vb + (tp.corner() + off[c]) * row + g * kVec,
-                               v[c]);
+                load_vec<true>(vb + (tp.corner() + off[c]) * row + ch, v[c]);
               } else {
 #pragma unroll
                 for (int e = 0; e < kVec; ++e) v[c][e] = 0.f;
@@ -196,11 +206,10 @@ __global__ void __launch_bounds__(kMaxThreads)
               // a corner outside the map, or one that adds exactly zero
               if (!(m >> c & 1) || s == 0.f) continue;
               if (staged(lv))
-                scatter_shared<kVec>(
-                    gtab + (int64_t)(tok - lv.delta) * D + g * kVec, s, gr,
-                    rot);
+                scatter_shared<kVec>(gtab + (int64_t)(tok - lv.delta) * D + ch,
+                                     s, gr, rot);
               else
-                scatter_global<kVec>(gvb + tok * row + g * kVec, s, gr);
+                scatter_global<kVec>(gvb + tok * row + ch, s, gr);
             }
           }
         }
@@ -219,9 +228,15 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
       const int t = t0 + g;
       if (active && t < LP) {
-        grad_attn[bqh * LP + t] = o_attn;
-        *reinterpret_cast<float2*>(grad_loc + (bqh * LP + t) * 2) =
-            make_float2(o_x, o_y);
+        float2* gl = reinterpret_cast<float2*>(grad_loc + (bqh * LP + t) * 2);
+        if (pass == 0) {
+          grad_attn[bqh * LP + t] = o_attn;
+          *gl = make_float2(o_x, o_y);
+        } else {
+          grad_attn[bqh * LP + t] += o_attn;
+          const float2 prev = *gl;
+          *gl = make_float2(prev.x + o_x, prev.y + o_y);
+        }
       }
     }
   }
@@ -283,17 +298,19 @@ int launch(const void* value, const void* loc, const void* attn,
     return (int)cudaErrorInvalidValue;
   const int chunks = (Q + chunk - 1) / chunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MSDA_CASE(T, DT, DD)                                              \
-  if (dtype == DT && D == DD)                                            \
-    return (int)launch_typed<T, DD, kMode>(value, loc, attn, grad_out,    \
-                                           grad_value, grad_loc, grad_attn, \
-                                           tb, rows, chunks, threads, s);
-  MSDA_CASE(float, 0, 4)
-  MSDA_CASE(float, 0, 8)
-  MSDA_CASE(float, 0, 32)
-  MSDA_CASE(__nv_bfloat16, 1, 4)
-  MSDA_CASE(__nv_bfloat16, 1, 8)
-  MSDA_CASE(__nv_bfloat16, 1, 32)
+#define MSDA_CASE(DD)                                                       \
+  if (D == DD)                                                             \
+    return dtype == 0 ? (int)launch_typed<float, DD, kMode>(               \
+                            value, loc, attn, grad_out, grad_value,        \
+                            grad_loc, grad_attn, tb, rows, chunks,         \
+                            threads, s)                                    \
+                      : (int)launch_typed<__nv_bfloat16, DD, kMode>(       \
+                            value, loc, attn, grad_out, grad_value,        \
+                            grad_loc, grad_attn, tb, rows, chunks,         \
+                            threads, s);
+  if (dtype == 0 || dtype == 1) {
+    MSDA_FOR_EACH_HEAD_DIM(MSDA_CASE)
+  }
 #undef MSDA_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -301,7 +318,7 @@ int launch(const void* value, const void* loc, const void* attn,
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16
-// (value only); D in {4, 8, 32}.  loc, attn and grad_out (B,Q,H*D) are
+// (value only); D in {4, 8, 16, 32, 64, 128, 256}.  loc, attn and grad_out (B,Q,H*D) are
 // float32; grad_value (B,N,H,D) is a zeroed float32 scratch; grad_loc
 // (B,Q,H,L,P,2) and grad_attn (B,Q,H,L,P) are float32 and fully written;
 // all on the device, contiguous, 16-byte aligned.  levels, chunk and

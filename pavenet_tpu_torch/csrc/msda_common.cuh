@@ -31,10 +31,12 @@ constexpr int kMaxThreads = 1024;
 // per-tap dot products, their shuffles and the value loads they need,
 // kNoShared and kNoDirect (backward) drop the reductions into the shared
 // table (and its zeroing and flush) or those made directly to global
-// memory.
+// memory, kMerged (forward) gives every item of a block the geometry of
+// the block's first query: the same corner rows and level windows, as
+// perfect row sharing between neighbouring queries would.
 enum Mode {
   kFull = 0, kEmpty = 1, kNoLoads = 2, kNoScatter = 3, kNoSums = 4,
-  kNoShared = 5, kNoDirect = 6
+  kNoShared = 5, kNoDirect = 6, kMerged = 7
 };
 
 // The call's level table and plan, by value.
@@ -73,7 +75,10 @@ __device__ __forceinline__ void load_levels(const Table& tb, Level* lv) {
 // An item's lanes: each owns kVec = min(kMaxVec, D) consecutive channels
 // and there are kGroup = D / kVec of them.  The forward takes kMaxVec = 8
 // (32 bytes a lane in f32, 16 in bf16), the backward 4 (16 bytes of its
-// f32 gradient rows; bf16 values load 8 bytes a lane).
+// f32 gradient rows; bf16 values load 8 bytes a lane).  D is a power of
+// two from 4: the forward's items take up to a warp (D = 256), the
+// backward's at most 8 lanes (D = 32), wider heads running in passes of 32
+// channels (msda_bwd.cu).
 template <int D, int kMaxVec>
 struct Lanes {
   static constexpr int kVec = kMaxVec < D ? kMaxVec : D;
@@ -81,6 +86,12 @@ struct Lanes {
   static_assert(kVec * kGroup == D && (kGroup & (kGroup - 1)) == 0 &&
                     kGroup <= 32, "head size");
 };
+
+// The head sizes both kernels are compiled for (ops/_ext.py::
+// MSDA_HEAD_DIMS lists the same): the edge case, the tiny configs and the
+// flagship (4, 8, 32), the other powers of two up to SOIT's one 256-channel
+// head.
+#define MSDA_FOR_EACH_HEAD_DIM(X) X(4) X(8) X(16) X(32) X(64) X(128) X(256)
 
 // ---- vector loads and stores, f32 in registers --------------------------
 

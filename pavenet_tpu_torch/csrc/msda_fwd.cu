@@ -79,7 +79,10 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int q = q0 + slot;
     const bool active = q < q_end;
     const int64_t bqh = ((int64_t)b * tb.Q + (active ? q : q0)) * tb.H + h;
-    const float* lp = loc + bqh * LP * 2;
+    // the probe kMerged: the locations of the block's first query
+    const int64_t geo =
+        kMode == kMerged ? ((int64_t)b * tb.Q + q_begin) * tb.H + h : bqh;
+    const float* lp = loc + geo * LP * 2;
     const float* ap = attn + bqh * LP;
     float acc[kVec];
 #pragma unroll
@@ -156,16 +159,16 @@ int launch(const void* value, const void* loc, const void* attn, void* out,
     return (int)cudaErrorInvalidValue;
   const int chunks = (Q + chunk - 1) / chunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MSDA_CASE(T, DT, DD)                                                \
-  if (dtype == DT && D == DD)                                              \
-    return (int)launch_typed<T, DD, kMode>(value, loc, attn, out, tb, rows, \
-                                           chunks, threads, s);
-  MSDA_CASE(float, 0, 4)
-  MSDA_CASE(float, 0, 8)
-  MSDA_CASE(float, 0, 32)
-  MSDA_CASE(__nv_bfloat16, 1, 4)
-  MSDA_CASE(__nv_bfloat16, 1, 8)
-  MSDA_CASE(__nv_bfloat16, 1, 32)
+#define MSDA_CASE(DD)                                                        \
+  if (D == DD)                                                              \
+    return dtype == 0                                                       \
+               ? (int)launch_typed<float, DD, kMode>(                       \
+                     value, loc, attn, out, tb, rows, chunks, threads, s)   \
+               : (int)launch_typed<__nv_bfloat16, DD, kMode>(               \
+                     value, loc, attn, out, tb, rows, chunks, threads, s);
+  if (dtype == 0 || dtype == 1) {
+    MSDA_FOR_EACH_HEAD_DIM(MSDA_CASE)
+  }
 #undef MSDA_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -173,7 +176,7 @@ int launch(const void* value, const void* loc, const void* attn, void* out,
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16
-// (value and out); D in {4, 8, 32}.  loc (B,Q,H,L,P,2) and attn (B,Q,H,L,P)
+// (value and out); D in {4, 8, 16, 32, 64, 128, 256}.  loc (B,Q,H,L,P,2) and attn (B,Q,H,L,P)
 // are float32; value, loc, attn and out on the device, contiguous, 16-byte
 // aligned.  levels is a host array of L triples (H_l, W_l, first row of the
 // level in the block's shared table or -1), chunk the queries per block and
@@ -187,8 +190,11 @@ extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,
                        P, chunk, threads, stream);
 }
 
-// The same launch with a part of the work removed (mode: 1 = empty body,
-// 2 = every corner value taken as 1, no corner loads).  Wrong on purpose:
+// The same launch with a part of the work removed or changed (mode: 1 =
+// empty body, 2 = every corner value taken as 1, no corner loads, 7 = every
+// item takes the locations of its block's first query: perfect row
+// sharing, the counterpart of the TPU merged-window probe
+// tools/perf/merged_window_ablate.py:39 _merged_kernel).  Wrong on purpose:
 // chip_smoke.py times it to see what bounds msda_fwd; no module of the
 // package calls it.
 extern "C" int msda_fwd_ablate(const void* value, const void* loc,
@@ -202,5 +208,8 @@ extern "C" int msda_fwd_ablate(const void* value, const void* loc,
   if (mode == kNoLoads)
     return launch<kNoLoads>(value, loc, attn, out, levels, L, dtype, B, N, Q,
                             H, D, P, chunk, threads, stream);
+  if (mode == kMerged)
+    return launch<kMerged>(value, loc, attn, out, levels, L, dtype, B, N, Q,
+                           H, D, P, chunk, threads, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -155,8 +155,15 @@ cudaError_t dispatch(const LevelTable& tab, int windows, int heads,
   switch (tab.C / heads) {
     case 8:
       return launch<T, 8>(tab, windows, heads, stream);
+    case 16:
+      return launch<T, 16>(tab, windows, heads, stream);
     case 32:
       return launch<T, 32>(tab, windows, heads, stream);
+    case 64:
+      // bf16 only: in float32, P and dS beside q, k, v and g need 276 KB
+      if constexpr (sizeof(T) == 2)
+        return launch<T, 64>(tab, windows, heads, stream);
+      break;
   }
   return cudaErrorInvalidValue;
 }
@@ -168,7 +175,8 @@ cudaError_t dispatch(const LevelTable& tab, int windows, int heads,
 // holds (Hp, Wp, first window); windows is the total over the levels.
 // dtype: 0 = float32, 1 = bfloat16 (every tensor but keep, which is
 // float32 0/1).  Rasters are (B, Hp, Wp, C), contiguous, 16-byte aligned;
-// wh * ww = 128, C / num_heads in {8, 32}, at most 8 levels.  Returns the
+// wh * ww = 128, C / num_heads in {8, 16, 32} (and 64 in bfloat16), at
+// most 8 levels.  Returns the
 // CUDA error of the launch (0 = success).
 extern "C" int window_attn_bwd(int n_levels, void* const* ptrs,
                                const int* dims, int windows, int dtype,

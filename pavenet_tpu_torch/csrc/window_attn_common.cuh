@@ -17,7 +17,8 @@
 //   and q in the forward (read as A, the same words):
 //       s = 4 (mod 8) words -> f32 D + 4, bf16 D / 2 + pad words;
 //       the same rows read down a column (f32 P V: word 2t * s + g) then
-//       need 2s = 8 or 24 (mod 32), which D + 4 also gives for D = 8, 32;
+//       need 2s = 8 or 24 (mod 32), which D + 4 also gives for D = 8, 16,
+//       32, 64;
 //       bf16 reads those with ldmatrix.trans, rows 16-byte aligned.
 //   q, dO in the backward (B of P^T dO, dS^T q: word t * s + g):
 //       f32 s = 8 or 24 (mod 32); bf16 as k, v (ldmatrix.trans).  Their
@@ -61,8 +62,9 @@ struct Strides {
   static constexpr bool kF32 = sizeof(T) == 4;
   // k, v rows (and q, dO rows in bf16)
   static constexpr int kv = kF32 ? D + 4 : D + 2 * ((4 - D / 2) & 7);
-  // q, dO rows in the f32 backward
-  static constexpr int qg = kF32 ? (D % 32 == 0 ? D + 8 : D + 16) : kv;
+  // q, dO rows in the f32 backward: D + 8 or D + 16, whichever is 8 or
+  // 24 (mod 32) words
+  static constexpr int qg = kF32 ? ((D + 8) % 16 == 8 ? D + 8 : D + 16) : kv;
   static_assert((kv * sizeof(T)) % 16 == 0 && (qg * sizeof(T)) % 16 == 0,
                 "rows must stay 16-byte aligned");
 };

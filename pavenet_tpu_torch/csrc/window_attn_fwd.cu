@@ -98,8 +98,12 @@ cudaError_t dispatch(const LevelTable& tab, int windows, int heads,
   switch (tab.C / heads) {
     case 8:
       return launch<T, 8>(tab, windows, heads, stream);
+    case 16:
+      return launch<T, 16>(tab, windows, heads, stream);
     case 32:
       return launch<T, 32>(tab, windows, heads, stream);
+    case 64:
+      return launch<T, 64>(tab, windows, heads, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -111,7 +115,7 @@ cudaError_t dispatch(const LevelTable& tab, int windows, int heads,
 // (Hp, Wp, first window); windows is the total over the levels.
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out); keep is float32 0/1.
 // Rasters are (B, Hp, Wp, C), contiguous, 16-byte aligned; wh * ww = 128,
-// C / num_heads in {8, 32}, at most 8 levels.  Returns the CUDA error of
+// C / num_heads in {8, 16, 32, 64}, at most 8 levels.  Returns the CUDA error of
 // the launch (0 = success).
 extern "C" int window_attn_fwd(int n_levels, void* const* ptrs,
                                const int* dims, int windows, int dtype,

@@ -10,6 +10,10 @@ deformable.py``).
 The frame axis is folded into the batch for one msda call per layer; the
 per-frame offset and weight heads are one fused Linear of width ``T*...``.
 Each applies dropout after its output projection, as the JAX modules do.
+The value, offset, weight and output projections compute in ``dtype``
+(``layers/dtype.py``); msda takes the value in that dtype, the locations
+in float32 and the softmaxed weights in ``dtype`` (the CUDA route reads
+them as float32).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from ...ops.ms_deform_attn import ms_deform_attn
+from ..layers.dtype import Linear
 from ..layers.transformer import Dropout
 
 
@@ -67,16 +72,17 @@ class MultiScaleDeformableAttention(nn.Module):
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
                  num_levels: int = 4, num_points: int = 4,
-                 dropout: float = 0.1, impl: str = "auto"):
+                 dropout: float = 0.1, impl: str = "auto",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embed_dims, self.num_heads = embed_dims, num_heads
         self.num_levels, self.num_points = num_levels, num_points
         self.impl = impl
         HLP = num_heads * num_levels * num_points
-        self.value_proj = nn.Linear(embed_dims, embed_dims)
-        self.sampling_offsets = nn.Linear(embed_dims, HLP * 2)
-        self.attention_weights = nn.Linear(embed_dims, HLP)
-        self.output_proj = nn.Linear(embed_dims, embed_dims)
+        self.value_proj = Linear(embed_dims, embed_dims, dtype=dtype)
+        self.sampling_offsets = Linear(embed_dims, HLP * 2, dtype=dtype)
+        self.attention_weights = Linear(embed_dims, HLP, dtype=dtype)
+        self.output_proj = Linear(embed_dims, embed_dims, dtype=dtype)
         self.drop = Dropout(dropout)
 
     def init_fixed_(self, generator):
@@ -120,16 +126,17 @@ class _MultiFrameBase(nn.Module):
 
     def __init__(self, num_frames: int = 3, embed_dims: int = 256,
                  num_heads: int = 8, num_levels: int = 4, num_points: int = 4,
-                 dropout: float = 0.1, impl: str = "auto"):
+                 dropout: float = 0.1, impl: str = "auto",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_frames, self.embed_dims = num_frames, embed_dims
         self.num_heads, self.num_levels = num_heads, num_levels
         self.num_points, self.impl = num_points, impl
         THLP = num_frames * num_heads * num_levels * num_points
-        self.value_proj = nn.Linear(embed_dims, embed_dims)
-        self.sampling_offsets = nn.Linear(embed_dims, THLP * 2)
-        self.attention_weights = nn.Linear(embed_dims, THLP)
-        self.output_proj = nn.Linear(embed_dims, embed_dims)
+        self.value_proj = Linear(embed_dims, embed_dims, dtype=dtype)
+        self.sampling_offsets = Linear(embed_dims, THLP * 2, dtype=dtype)
+        self.attention_weights = Linear(embed_dims, THLP, dtype=dtype)
+        self.output_proj = Linear(embed_dims, embed_dims, dtype=dtype)
         self.drop = Dropout(dropout)
 
     def init_fixed_(self, generator):

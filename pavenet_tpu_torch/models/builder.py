@@ -1,6 +1,9 @@
 """Config dict -> detector (as ``pavenet_tpu/models/builder.py``, the
-VideoPoseV1 path with RLE losses and frozen BatchNorm)."""
+VideoPoseV1 and VideoPoseV2 paths with RLE losses, a ResNet backbone with
+frozen or trainable BatchNorm, and the activation dtype)."""
 from __future__ import annotations
+
+import torch
 
 from .detectors.videopose import VideoPoseDetector
 
@@ -26,24 +29,24 @@ def _loss_weight(head, key, default):
     return head.get(key, {}).get("loss_weight", default)
 
 
-def build_detector(cfg: dict, impl: str = "auto") -> VideoPoseDetector:
-    """Build the video pose detector from a reference-style model config.
+def build_detector(cfg: dict, impl: str = "auto",
+                   dtype: torch.dtype = torch.float32) -> VideoPoseDetector:
+    """Build the video pose detector from a reference-style model config,
+    in activation dtype ``dtype`` (see ``config.resolve_act_dtype``).
 
-    ``encoder.mode`` is 'deformable' (the default) or 'windowed'. Raises on
-    what the port does not have yet: another detector, backbone or head,
-    trainable BatchNorm, a frozen backbone and neck (VideoPoseV2), another
+    ``encoder.mode`` is 'deformable' (the default) or 'windowed';
+    VideoPoseV2 trains with backbone and neck frozen. Raises on what the
+    port does not have yet: another detector, backbone or head, another
     encoder mode, a keypoint loss other than RLE, and OKS or heatmap losses
     with a weight above 0.
     """
     det_type = _type_name(cfg)
-    if det_type != "VideoPoseV1":
+    if det_type not in ("VideoPoseV1", "VideoPoseV2"):
         raise KeyError(f"unsupported detector type {det_type!r} (the port "
-                       "has VideoPoseV1)")
+                       "has VideoPoseV1 and VideoPoseV2)")
     backbone = cfg.get("backbone", {})
     if _type_name(backbone, "ResNet") != "ResNet":
         raise KeyError(f"unsupported backbone {backbone.get('type')!r}")
-    if not backbone.get("norm_eval", True):
-        raise KeyError("trainable BatchNorm (norm_eval=False) is not ported")
     head = cfg.get("bbox_head", {})
     head_type = _type_name(head, "VideoPoseHeadMulFrames")
     if head_type != "VideoPoseHeadMulFrames":
@@ -77,6 +80,8 @@ def build_detector(cfg: dict, impl: str = "auto") -> VideoPoseDetector:
         backbone_depth=backbone.get("depth", 50),
         backbone_out_indices=tuple(backbone.get("out_indices", (1, 2, 3))),
         frozen_stages=backbone.get("frozen_stages", 1),
+        norm_eval=backbone.get("norm_eval", True),
+        freeze_backbone_neck=det_type == "VideoPoseV2",
         embed_dims=enc_layers.get("attn_cfgs", {}).get("embed_dims", 256),
         feedforward_channels=enc_layers.get("feedforward_channels", 1024),
         dropout=enc_layers.get("ffn_dropout", 0.1),
@@ -92,4 +97,4 @@ def build_detector(cfg: dict, impl: str = "auto") -> VideoPoseDetector:
         cls_cost_weight=cost_weight("cls_cost", 2.0),
         kpt_cost_weight=cost_weight("kpt_cost", 70.0),
         oks_cost_weight=cost_weight("oks_cost", 7.0),
-        encoder_mode=encoder_mode, impl=impl)
+        encoder_mode=encoder_mode, impl=impl, dtype=dtype)

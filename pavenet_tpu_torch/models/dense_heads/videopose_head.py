@@ -4,7 +4,9 @@ proposals, per-frame pose decoder, the joint (refine) decoder and the three
 RealNVP flows of the RLE losses.
 
 Batch-first with an explicit frame axis ``(B, T, ...)``. The PETR heatmap
-branch (weight 0 in every video config) is not ported.
+branch (weight 0 in every video config) is not ported. Every layer computes
+in ``dtype`` (``layers/dtype.py``); the embeddings stay float32 and promote
+what they are added to, as in the JAX head.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from ..attention.deformable import (
     MultiFramePoseDeformableAttention,
 )
 from ..flows.realnvp import RealNVP
+from ..layers.dtype import LayerNorm, Linear
 from ..layers.positional_encoding import sine_positional_encoding
 from ..layers.transformer import FFN, MLP, MultiheadAttention
 from ..layers.windowed import WindowedEncoderLayer
@@ -37,20 +40,19 @@ def bias_init_with_prob(prior_prob: float) -> float:
     return float(-math.log((1 - prior_prob) / prior_prob))
 
 
-def _layer_norm(dims):
-    return nn.LayerNorm(dims, eps=1e-6)  # the JAX package's LayerNorm epsilon
-
-
 class SigmaBranch(nn.Module):
     """``num_fcs`` affine layers without activation, then a small-gain
     output layer."""
 
-    def __init__(self, embed_dims: int, out_dim: int, num_fcs: int = 2):
+    def __init__(self, embed_dims: int, out_dim: int, num_fcs: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_fcs = num_fcs
         for i in range(num_fcs):
-            self.add_module(f"Dense_{i}", nn.Linear(embed_dims, embed_dims))
-        self.add_module(f"Dense_{num_fcs}", nn.Linear(embed_dims, out_dim))
+            self.add_module(f"Dense_{i}", Linear(embed_dims, embed_dims,
+                                                 dtype=dtype))
+        self.add_module(f"Dense_{num_fcs}", Linear(embed_dims, out_dim,
+                                                   dtype=dtype))
 
     def init_fixed_(self, generator):
         w = getattr(self, f"Dense_{self.num_fcs}").weight
@@ -67,14 +69,14 @@ class EncoderLayer(nn.Module):
 
     def __init__(self, embed_dims=256, num_heads=8, num_levels=4,
                  num_points=4, feedforward_channels=1024, dropout=0.1,
-                 impl="auto"):
+                 impl="auto", dtype=torch.float32):
         super().__init__()
         self.attn = MultiScaleDeformableAttention(
             embed_dims, num_heads, num_levels, num_points, dropout=dropout,
-            impl=impl)
-        self.norm1 = _layer_norm(embed_dims)
-        self.ffn = FFN(embed_dims, feedforward_channels, dropout)
-        self.norm2 = _layer_norm(embed_dims)
+            impl=impl, dtype=dtype)
+        self.norm1 = LayerNorm(embed_dims, dtype=dtype)
+        self.ffn = FFN(embed_dims, feedforward_channels, dropout, dtype)
+        self.norm2 = LayerNorm(embed_dims, dtype=dtype)
 
     def forward(self, x, pos, reference_points, spatial_shapes,
                 key_padding_mask):
@@ -93,7 +95,7 @@ class VideoPoseHead(nn.Module):
                  encoder_num_points: int = 4, refine_num_points: int = 4,
                  feedforward_channels: int = 1024, num_kpt_fcs: int = 2,
                  dropout: float = 0.1, encoder_mode: str = "deformable",
-                 impl: str = "auto"):
+                 impl: str = "auto", dtype: torch.dtype = torch.float32):
         super().__init__()
         if encoder_mode not in ("deformable", "windowed"):
             raise ValueError(f"unknown encoder_mode {encoder_mode!r}")
@@ -106,56 +108,65 @@ class VideoPoseHead(nn.Module):
         num_pred = num_decoder_layers + 1   # + encoder proposal head
 
         add = self.add_module
+        d = dtype
+
+        def norm():
+            return LayerNorm(C, dtype=d)
+
         for i in range(num_encoder_layers):
             if encoder_mode == "windowed":   # odd layers shift the windows
                 add(f"encoder_layer{i}", WindowedEncoderLayer(
                     C, num_heads, feedforward_channels, dropout,
-                    shift=bool(i % 2), impl=impl))
+                    shift=bool(i % 2), impl=impl, dtype=d))
             else:
                 add(f"encoder_layer{i}", EncoderLayer(
                     C, num_heads, num_levels, encoder_num_points,
-                    feedforward_channels, dropout, impl))
+                    feedforward_channels, dropout, impl, d))
         self.num_encoder_layers = num_encoder_layers
         self.level_embeds = nn.Parameter(torch.empty(num_levels, C))
-        self.enc_output = nn.Linear(C, C)
-        self.enc_output_norm = _layer_norm(C)
+        self.enc_output = Linear(C, C, dtype=d)
+        self.enc_output_norm = norm()
         self.query_embedding = nn.Parameter(torch.empty(num_query, 2 * C))
         self.refine_query_embedding = nn.Parameter(torch.empty(K, 2 * C))
 
         for i in range(num_decoder_layers):
-            add(f"dec_self_attn{i}", MultiheadAttention(C, num_heads, dropout))
+            add(f"dec_self_attn{i}", MultiheadAttention(C, num_heads, dropout,
+                                                        d))
             add(f"dec_cross_attn{i}", MultiFramePoseDeformableAttention(
-                T, C, num_heads, num_levels, K, dropout=dropout, impl=impl))
+                T, C, num_heads, num_levels, K, dropout=dropout, impl=impl,
+                dtype=d))
             for j in (1, 2, 3):
-                add(f"dec_norm{j}_{i}", _layer_norm(C))
-            add(f"dec_ffn{i}", FFN(C, feedforward_channels, dropout))
+                add(f"dec_norm{j}_{i}", norm())
+            add(f"dec_ffn{i}", FFN(C, feedforward_channels, dropout, d))
         kpt_hidden = (512,) * (num_kpt_fcs + 1)
         for i in range(num_pred):
-            add(f"cls_branch{i}", nn.Linear(C, num_classes))
+            add(f"cls_branch{i}", Linear(C, num_classes, dtype=d))
             add(f"kpt_branch{i}", MLP(C, kpt_hidden, 2 * K,
-                                      zero_init_last=True))
-            add(f"sigma_branch{i}", SigmaBranch(C, 2 * K, num_kpt_fcs))
+                                      zero_init_last=True, dtype=d))
+            add(f"sigma_branch{i}", SigmaBranch(C, 2 * K, num_kpt_fcs, d))
         # aux-frame offset branches, frame order (pre..., next...)
         for f in range(T - 1):
             for i in range(num_decoder_layers):
-                add(f"aux_kpt_branch_f{f}_l{i}", MLP(C, kpt_hidden, 2 * K))
+                add(f"aux_kpt_branch_f{f}_l{i}", MLP(C, kpt_hidden, 2 * K,
+                                                     dtype=d))
 
         for i in range(num_refine_layers):
-            add(f"ref_self_attn{i}", MultiheadAttention(C, num_heads, dropout))
+            add(f"ref_self_attn{i}", MultiheadAttention(C, num_heads, dropout,
+                                                        d))
             add(f"ref_cross_attn{i}", MultiFrameDeformableAttention(
                 T, C, num_heads, num_levels, refine_num_points,
-                dropout=dropout, impl=impl))
+                dropout=dropout, impl=impl, dtype=d))
             for j in (1, 2, 3):
-                add(f"ref_norm{j}_{i}", _layer_norm(C))
-            add(f"ref_ffn{i}", FFN(C, feedforward_channels, dropout))
-            add(f"refine_sigma_branch{i}", SigmaBranch(C, 2, num_kpt_fcs))
+                add(f"ref_norm{j}_{i}", norm())
+            add(f"ref_ffn{i}", FFN(C, feedforward_channels, dropout, d))
+            add(f"refine_sigma_branch{i}", SigmaBranch(C, 2, num_kpt_fcs, d))
             for f in range(T):
                 add(f"refine_kpt_branch_f{f}_l{i}", MLP(
-                    C, (C,) * num_kpt_fcs, 2, zero_init_last=True))
+                    C, (C,) * num_kpt_fcs, 2, zero_init_last=True, dtype=d))
         # RLE flows: encoder proposals, pose decoder, joint decoder
-        self.enc_flow = RealNVP()
-        self.dec_flow = RealNVP()
-        self.flow = RealNVP()
+        self.enc_flow = RealNVP(dtype=d)
+        self.dec_flow = RealNVP(dtype=d)
+        self.flow = RealNVP(dtype=d)
 
     def init_fixed_(self, generator):
         for p in (self.level_embeds, self.query_embedding,
@@ -252,9 +263,13 @@ class VideoPoseHead(nn.Module):
                     spatial_shapes=spatial_shapes)
 
     def forward(self, mlvl_feats: Sequence[torch.Tensor],
-                mlvl_masks: Sequence[torch.Tensor], valid_ratios):
+                mlvl_masks: Sequence[torch.Tensor], valid_ratios,
+                topk_idx=None):
         """Encoder -> two-stage proposals -> pose decoder (arguments as
-        ``forward_encoder``)."""
+        ``forward_encoder``). ``topk_idx`` (B, num_query), if given,
+        replaces the top-k selection of the proposals (a check's hook: two
+        runs whose proposal scores nearly tie can then be compared past
+        the selection); the selection made is returned as ``topk_idx``."""
         enc = self.forward_encoder(mlvl_feats, mlvl_masks, valid_ratios)
         memory, mask = enc["memory"], enc["mask_flatten"]
         spatial_shapes: Shapes = enc["spatial_shapes"]
@@ -278,9 +293,10 @@ class VideoPoseHead(nn.Module):
         enc_sigma = self._m("sigma_branch{}", last)(out_mem)      # (B,N,2K)
 
         # top-k proposals; invalid positions pushed out of the running
-        topk_scores = torch.where(prop_valid, enc_cls[..., 0],
-                                  torch.full_like(enc_cls[..., 0], -1e4))
-        topk_idx = topk_scores.topk(NQ, dim=1).indices            # (B, NQ)
+        if topk_idx is None:
+            topk_scores = torch.where(prop_valid, enc_cls[..., 0],
+                                      torch.full_like(enc_cls[..., 0], -1e4))
+            topk_idx = topk_scores.topk(NQ, dim=1).indices        # (B, NQ)
 
         def gather(a):
             return torch.gather(
@@ -337,6 +353,7 @@ class VideoPoseHead(nn.Module):
             enc_sigma_preds=enc_sigma.sigmoid(),
             frame_kpt_preds=refs_list[-1],        # (B, T, Q, 2K)
             init_reference=init_reference,
+            topk_idx=topk_idx,                    # (B, Q)
             memory=memory,                        # (B, T, N, C)
             mask_flatten=mask,                    # (B, N)
             spatial_shapes=spatial_shapes,

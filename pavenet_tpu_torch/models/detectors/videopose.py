@@ -3,6 +3,13 @@ backbone + neck + video pose head, with the train step's losses
 (``forward_train``: Hungarian matching, focal and RLE losses) and the test
 path's Poseur rescoring and OKS-NMS (``forward_test``).
 
+Trainable BatchNorm (``norm_eval=False``) is in train mode in
+``forward_train`` and in eval mode elsewhere, whatever ``nn.Module.training``
+says (that flag drives dropout only), as the JAX detector's ``train``
+argument does; ``freeze_backbone_neck`` (VideoPoseV2) detaches the neck's
+features. ``dtype`` is the activation dtype of backbone, neck and head
+(``models/layers/dtype.py``); parameters stay float32.
+
 Batch dict (tensors on the model's device):
     img:          (B, T, H, W, 3) float32, normalised
     img_shape:    (B, 2) int (valid h, w) before padding
@@ -53,12 +60,17 @@ class VideoPoseDetector(nn.Module):
                  loss_kpt_refine_weight: float = 1.0,
                  cls_cost_weight: float = 2.0, kpt_cost_weight: float = 70.0,
                  oks_cost_weight: float = 7.0,
-                 encoder_mode: str = "deformable", impl: str = "auto"):
+                 encoder_mode: str = "deformable", impl: str = "auto",
+                 norm_eval: bool = True, freeze_backbone_neck: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_frames, self.num_keypoints = num_frames, num_keypoints
         self.num_classes = num_classes
         self.max_per_img = max_per_img
-        self.frozen_stages = frozen_stages  # read by the optimizer's labels
+        # read by the optimizer's labels
+        self.frozen_stages, self.norm_eval = frozen_stages, norm_eval
+        self.freeze_backbone_neck = freeze_backbone_neck
+        self.dtype = dtype
         self.loss_cls_weight = loss_cls_weight
         self.loss_kpt_weight = loss_kpt_weight
         self.loss_kpt_rpn_weight = loss_kpt_rpn_weight
@@ -66,9 +78,10 @@ class VideoPoseDetector(nn.Module):
         self.cost_weights = dict(cls_weight=cls_cost_weight,
                                  kpt_weight=kpt_cost_weight,
                                  oks_weight=oks_cost_weight)
-        self.backbone = ResNet(backbone_depth, backbone_out_indices)
+        self.backbone = ResNet(backbone_depth, backbone_out_indices,
+                               norm_eval, frozen_stages, dtype)
         self.neck = ChannelMapper(self.backbone.out_channels, embed_dims,
-                                  num_outs=4)
+                                  num_outs=4, dtype=dtype)
         self.head = VideoPoseHead(
             num_classes=num_classes, num_frames=num_frames,
             num_keypoints=num_keypoints, num_query=num_query,
@@ -76,7 +89,7 @@ class VideoPoseDetector(nn.Module):
             num_decoder_layers=num_decoder_layers,
             num_refine_layers=num_refine_layers,
             feedforward_channels=feedforward_channels, dropout=dropout,
-            encoder_mode=encoder_mode, impl=impl)
+            encoder_mode=encoder_mode, impl=impl, dtype=dtype)
         self.register_buffer("oks_sigmas",
                              torch.tensor(OKS_SIGMAS[num_keypoints]),
                              persistent=False)
@@ -85,7 +98,7 @@ class VideoPoseDetector(nn.Module):
     def init_weights(self, generator: torch.Generator):
         """Random weights that follow the JAX initialisers wherever those fix
         a value (spoke offset biases, zero-init kernels, the cls prior bias,
-        ``normal(1.0)`` embeddings, identity frozen BN)."""
+        ``normal(1.0)`` embeddings, identity BatchNorm)."""
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
                 lecun_normal_(m.weight, generator)
@@ -99,12 +112,16 @@ class VideoPoseDetector(nn.Module):
                 m.init_fixed_(generator)
 
     # ------------------------------------------------------------------
-    def extract_feats(self, img):
+    def extract_feats(self, img, train: bool = False):
         """(B, T, H, W, 3) -> list of (B, T, h, w, C); frames folded into the
-        batch through backbone and neck."""
+        batch through backbone and neck (one BatchNorm reduction spans all
+        B*T images, padding included); ``train`` puts trainable BatchNorm
+        in train mode."""
         B, T, H, W, _ = img.shape
         x = img.reshape(B * T, H, W, 3).permute(0, 3, 1, 2)
-        feats = self.neck(self.backbone(x))
+        feats = self.neck(self.backbone(x, train))
+        if self.freeze_backbone_neck:
+            feats = [f.detach() for f in feats]
         return [f.view(B, T, *f.shape[1:]).permute(0, 1, 3, 4, 2)
                 for f in feats]
 
@@ -127,16 +144,20 @@ class VideoPoseDetector(nn.Module):
                                        row_valid.sum(-1) / h_l], -1))
         return masks, torch.stack(ratios, 1).float()
 
-    def _head_inputs(self, img, img_shape):
-        feats = self.extract_feats(img)
+    def _head_inputs(self, img, img_shape, train=False):
+        feats = self.extract_feats(img, train)
         level_shapes = tuple((f.shape[2], f.shape[3]) for f in feats)
         mlvl_masks, valid_ratios = self.level_masks(
             img_shape, img.shape[2:4], level_shapes)
         return feats, mlvl_masks, valid_ratios
 
-    def forward_outputs(self, img, img_shape):
-        feats, mlvl_masks, valid_ratios = self._head_inputs(img, img_shape)
-        outs = self.head(feats, mlvl_masks, valid_ratios)
+    def forward_outputs(self, img, img_shape, train: bool = False,
+                        topk_idx=None):
+        """The head's outputs (``train``: trainable BatchNorm in train
+        mode; ``topk_idx``: the head's selection hook)."""
+        feats, mlvl_masks, valid_ratios = self._head_inputs(img, img_shape,
+                                                            train)
+        outs = self.head(feats, mlvl_masks, valid_ratios, topk_idx)
         outs["valid_ratios"] = valid_ratios
         return outs
 
@@ -201,13 +222,15 @@ class VideoPoseDetector(nn.Module):
                           self._gather_pos(sigma_preds, targets), targets,
                           num_valid_kpt, kpt_weight))
 
-    def forward_train(self, batch):
+    def forward_train(self, batch, topk_idx=None):
         """Loss dict of one batch, as the JAX ``forward_train``: per pose
         decoder layer (prefix ``d{i}.``, the last layer unprefixed), the
         encoder proposals over all N tokens (``enc_``), the joint decoder on
         the last layer's matched poses (``d{r}.loss_kpt_refine``), and their
-        sum ``loss``."""
-        outs = self.forward_outputs(batch["img"], batch["img_shape"])
+        sum ``loss``. Trainable BatchNorm runs in train mode and updates its
+        running statistics; ``topk_idx`` is the head's selection hook."""
+        outs = self.forward_outputs(batch["img"], batch["img_shape"],
+                                    train=True, topk_idx=topk_idx)
         head = self.head
         *dec_targets, enc_targets = self.match(outs, batch)
         losses = {}

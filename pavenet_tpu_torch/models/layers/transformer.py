@@ -7,7 +7,7 @@ parameter tree (``Dense_<i>``, ``MultiHeadDotProductAttention_0``), so the
 weight converter is a plain tree walk. Dropout sits where the JAX package
 puts it: in FFN after the hidden ReLU and after the output projection, in
 MultiheadAttention after the output projection (none on the attention
-probabilities).
+probabilities). Dense layers compute in ``dtype`` (``layers/dtype.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .dtype import Linear
 
 
 class Dropout(nn.Module):
@@ -40,12 +42,14 @@ class MLP(nn.Module):
     """Hidden layers with ReLU, linear output."""
 
     def __init__(self, in_dim: int, hidden_dims: Sequence[int], out_dim: int,
-                 zero_init_last: bool = False):
+                 zero_init_last: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         dims = [in_dim, *hidden_dims, out_dim]
         self.num_layers = len(dims) - 1
         for i in range(self.num_layers):
-            self.add_module(f"Dense_{i}", nn.Linear(dims[i], dims[i + 1]))
+            self.add_module(f"Dense_{i}", Linear(dims[i], dims[i + 1],
+                                                 dtype=dtype))
         self.zero_init_last = zero_init_last
 
     def init_fixed_(self, generator):
@@ -63,10 +67,10 @@ class FFN(nn.Module):
     """Two-layer feed-forward block with internal residual."""
 
     def __init__(self, embed_dims: int = 256, feedforward_channels: int = 1024,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Dense_0 = nn.Linear(embed_dims, feedforward_channels)
-        self.Dense_1 = nn.Linear(feedforward_channels, embed_dims)
+        self.Dense_0 = Linear(embed_dims, feedforward_channels, dtype=dtype)
+        self.Dense_1 = Linear(feedforward_channels, embed_dims, dtype=dtype)
         self.drop_hidden = Dropout(dropout)
         self.drop_out = Dropout(dropout)
 
@@ -77,15 +81,17 @@ class FFN(nn.Module):
 
 class _DotProductAttention(nn.Module):
     """The JAX package's ``MultiHeadDotProductAttention`` written out:
-    projections, scaled dot product, softmax, output projection."""
+    projections, scaled dot product, softmax, output projection, all in
+    ``dtype`` (flax's softmax there runs in it too)."""
 
-    def __init__(self, embed_dims: int, num_heads: int):
+    def __init__(self, embed_dims: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
-        self.query = nn.Linear(embed_dims, embed_dims)
-        self.key = nn.Linear(embed_dims, embed_dims)
-        self.value = nn.Linear(embed_dims, embed_dims)
-        self.out = nn.Linear(embed_dims, embed_dims)
+        self.query = Linear(embed_dims, embed_dims, dtype=dtype)
+        self.key = Linear(embed_dims, embed_dims, dtype=dtype)
+        self.value = Linear(embed_dims, embed_dims, dtype=dtype)
+        self.out = Linear(embed_dims, embed_dims, dtype=dtype)
 
     def forward(self, q, k, v):
         B, Lq, C = q.shape
@@ -104,10 +110,10 @@ class MultiheadAttention(nn.Module):
     internal residual. The value is the query without the position."""
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.MultiHeadDotProductAttention_0 = _DotProductAttention(
-            embed_dims, num_heads)
+            embed_dims, num_heads, dtype)
         self.drop = Dropout(dropout)
 
     def forward(self, query, query_pos=None):

@@ -13,7 +13,10 @@ As in the JAX package:
   no Swin region mask: keys that wrap in are masked only where they are
   padding;
 - dropout after the output projection, post-norm, then the FFN and a
-  second norm.
+  second norm;
+- in ``dtype`` (``layers/dtype.py``): the projections, the attention's
+  inputs and output, and the LayerNorms' outputs; the scores and softmax
+  in float32, the weights cast to ``dtype`` before ``A V``.
 
 Attention goes through ``ops/window_attn.py`` on the rasters, for every
 ``impl`` (the plain version partitions into windows inside it): one call
@@ -29,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.window_attn import window_attention_levels
+from .dtype import LayerNorm, Linear
 from .transformer import FFN, Dropout
 
 WINDOW = (8, 16)   # (wh, ww): 128 tokens
@@ -101,18 +105,19 @@ class WindowedEncoderLayer(nn.Module):
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
                  feedforward_channels: int = 1024, dropout: float = 0.1,
-                 shift: bool = False, impl: str = "auto"):
+                 shift: bool = False, impl: str = "auto",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         C = embed_dims
         self.num_heads, self.shift, self.impl = num_heads, shift, impl
-        self.q_proj = nn.Linear(C, C)
-        self.k_proj = nn.Linear(C, C)
-        self.v_proj = nn.Linear(C, C)
-        self.out_proj = nn.Linear(C, C)
+        self.q_proj = Linear(C, C, dtype=dtype)
+        self.k_proj = Linear(C, C, dtype=dtype)
+        self.v_proj = Linear(C, C, dtype=dtype)
+        self.out_proj = Linear(C, C, dtype=dtype)
         self.drop = Dropout(dropout)
-        self.norm1 = nn.LayerNorm(C, eps=1e-6)   # the JAX LayerNorm epsilon
-        self.ffn = FFN(C, feedforward_channels, dropout)
-        self.norm2 = nn.LayerNorm(C, eps=1e-6)
+        self.norm1 = LayerNorm(C, dtype=dtype)
+        self.ffn = FFN(C, feedforward_channels, dropout, dtype)
+        self.norm2 = LayerNorm(C, dtype=dtype)
 
     def forward(self, x, pos, reference_points, spatial_shapes: Sequence,
                 key_padding_mask):

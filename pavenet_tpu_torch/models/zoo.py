@@ -9,7 +9,8 @@ from .detectors.videopose import VideoPoseDetector
 def pavenet_r50_frames3(**overrides) -> VideoPoseDetector:
     """Production PAVE-Net: R50, 4-level neck, 6-layer encoder, 3-layer pose
     decoder, 2-layer joint decoder, T=3, K=15, 300 queries,
-    max_per_img=20."""
+    max_per_img=20. Any argument of ``VideoPoseDetector`` overrides, the
+    activation dtype too (``dtype=torch.bfloat16``)."""
     kwargs = dict(
         num_frames=3, num_keypoints=15, num_query=300, backbone_depth=50,
         embed_dims=256, num_encoder_layers=6, num_decoder_layers=3,

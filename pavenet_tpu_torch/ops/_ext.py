@@ -43,21 +43,25 @@ _ARGTYPES = {
     "window_attn_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 2
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
-# msda: head sizes the kernels are compiled for (the edge case, the tiny
-# configs, the flagship), the most levels of one call, what the plan may
-# give a block (Hopper's 227 KB of shared memory less the kernels' 128-byte
-# level table) and an SM (228 KB), and the blocks a call is cut into per
-# direction (4 and 8 per SM of the H100's 132: the backward's smaller
-# chunks spread its reductions)
-MSDA_HEAD_DIMS = (4, 8, 32)
+# msda: head sizes the kernels are compiled for (csrc/msda_common.cuh
+# MSDA_FOR_EACH_HEAD_DIM: the edge case, the tiny configs, the flagship and
+# the other powers of two up to SOIT's 256), the most levels of one call,
+# what the plan may give a block (Hopper's 227 KB of shared memory less the
+# kernels' 128-byte level table) and an SM (228 KB), and the blocks a call
+# is cut into per direction (4 and 8 per SM of the H100's 132: the
+# backward's smaller chunks spread its reductions)
+MSDA_HEAD_DIMS = (4, 8, 16, 32, 64, 128, 256)
 MSDA_MAX_LEVELS = 8
 MSDA_SMEM_BYTES = 232448 - 128
 MSDA_SM_SMEM_BYTES = 233472
 MSDA_BLOCKS_PER_CALL = {False: 4 * 132, True: 8 * 132}
-# head sizes the window-attention kernels are compiled for: the flagship's
-# 256 / 8 and the tiny debug configs' 64 / 8; the window is 128 tokens and
-# one launch takes at most WINDOW_MAX_LEVELS level rasters
-WINDOW_HEAD_DIMS = (8, 32)
+# head sizes the window-attention kernels are compiled for: the tiny debug
+# configs' 64 / 8, 128 / 8, the flagship's 256 / 8 and 512 / 8, except the
+# float32 backward at 64, whose staged P and dS with q, k, v and g (276 KB)
+# exceed a block's 227 KB; the window is 128 tokens and one launch takes at
+# most WINDOW_MAX_LEVELS level rasters
+WINDOW_HEAD_DIMS = (8, 16, 32, 64)
+WINDOW_F32_BWD_HEAD_DIMS = (8, 16, 32)
 WINDOW_TOKENS = 128
 WINDOW_MAX_LEVELS = 8
 
@@ -171,7 +175,8 @@ def msda_plan(shapes, B: int, Q: int, H: int, P: int, D: int, dtype,
     if not 1 <= L <= MSDA_MAX_LEVELS:
         raise ValueError(f"msda: {L} levels, not 1..{MSDA_MAX_LEVELS}")
     if D not in MSDA_HEAD_DIMS:
-        raise ValueError(f"msda: head size {D} not in {MSDA_HEAD_DIMS}")
+        raise ValueError(f"msda: head size {D} not in {MSDA_HEAD_DIMS}, the "
+                         "head sizes the kernels take")
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"msda: value dtype {dtype} not supported")
     if not 0 <= smem_bytes <= MSDA_SMEM_BYTES:
@@ -181,9 +186,11 @@ def msda_plan(shapes, B: int, Q: int, H: int, P: int, D: int, dtype,
         raise ValueError(f"msda: empty call B={B} Q={Q} H={H} P={P} "
                          f"levels {shapes}")
     # a block stages rows of the value's dtype forward and f32 gradient
-    # rows backward; a lane owns 8 channels forward, 4 backward
+    # rows backward; a lane owns 8 channels forward, 4 backward, where the
+    # backward takes wide heads 32 channels a pass
     row_bytes = D * (4 if backward or dtype == torch.float32 else 2)
-    lanes = D // min(D, 4 if backward else 8)    # lanes per (b, q, h)
+    lanes = (min(D, 32) // min(D, 4) if backward     # lanes per (b, q, h)
+             else D // min(D, 8))
     chunks = max(1, -(-MSDA_BLOCKS_PER_CALL[backward] // (B * H)))
     chunk = -(-Q // chunks)
     smem_row, rows = [-1] * L, 0
@@ -194,9 +201,10 @@ def msda_plan(shapes, B: int, Q: int, H: int, P: int, D: int, dtype,
         smem_row[l], rows = rows, rows + n
     smem = rows * row_bytes
     # the SM's 1024 threads (64 registers each) among the blocks its shared
-    # memory holds (228 KB, 1 KB of it reserved per block), at most 4
+    # memory holds (228 KB, 1 KB of it reserved per block), at most 4, in
+    # whole warps
     blocks = min(4, MSDA_SM_SMEM_BYTES // (smem + 128 + 1024))
-    threads = min(1024 // blocks, -(-chunk * lanes // 32) * 32)
+    threads = min(1024 // blocks // 32 * 32, -(-chunk * lanes // 32) * 32)
     return MsdaPlan(chunk, threads,
                     tuple(zip(*zip(*shapes), smem_row)), smem)
 
@@ -312,6 +320,13 @@ def window_level_table(shapes, wh: int = 8, ww: int = 16):
     return table, first
 
 
+def window_head_dims(backward: bool, dtype) -> tuple:
+    """The head sizes of the window-attention kernel of one direction and
+    dtype."""
+    return (WINDOW_F32_BWD_HEAD_DIMS if backward and dtype == torch.float32
+            else WINDOW_HEAD_DIMS)
+
+
 def _check_window(name: str, qs, num_heads: int, wh: int, ww: int,
                   **lists):
     """Check the level lists of a window-attention launch; returns
@@ -329,9 +344,11 @@ def _check_window(name: str, qs, num_heads: int, wh: int, ww: int,
         raise ValueError(f"{name}: expected (B, Hp, Wp, C) rasters, got "
                          f"{tuple(q0.shape)}")
     C = q0.shape[3]
-    if C % num_heads or C // num_heads not in WINDOW_HEAD_DIMS:
+    dims = window_head_dims(name.endswith("bwd"), q0.dtype)
+    if C % num_heads or C // num_heads not in dims:
         raise ValueError(f"{name}: head size C / num_heads = {C} / "
-                         f"{num_heads} not in {WINDOW_HEAD_DIMS}")
+                         f"{num_heads} not in {dims}, the head sizes the "
+                         f"kernel takes in {q0.dtype}")
     for key, ts in lists.items():
         if len(ts) != n:
             raise ValueError(f"{name}: {len(ts)} {key} for {n} levels")

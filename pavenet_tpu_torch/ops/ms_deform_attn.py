@@ -78,6 +78,7 @@ class MSDeformAttnFunction(torch.autograd.Function):
         ctx.save_for_backward(value, locations, weights)
         out = _ext.msda_fwd(value, shapes, locations, weights)
         ms_deform_attn.launches += 1
+        ms_deform_attn.bf16_launches += value.dtype == torch.bfloat16
         return out
 
     @staticmethod
@@ -86,6 +87,7 @@ class MSDeformAttnFunction(torch.autograd.Function):
         grads = _ext.msda_bwd(value, ctx.shapes, locations, weights,
                               _aligned(grad_out.float()))
         ms_deform_attn.backward_launches += 1
+        ms_deform_attn.bf16_backward_launches += value.dtype == torch.bfloat16
         grad_value, grad_loc, grad_attn = grads
         return grad_value, None, grad_loc, grad_attn
 
@@ -108,7 +110,9 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence,
     'auto' is 'cuda' for a CUDA ``value`` and 'torch' for a CPU one. 'cuda'
     runs ``MSDeformAttnFunction`` (the forward and backward kernels) or
     raises; it never falls back. ``ms_deform_attn.launches`` and
-    ``ms_deform_attn.backward_launches`` count the kernel launches.
+    ``ms_deform_attn.backward_launches`` count the kernel launches,
+    ``.bf16_launches`` and ``.bf16_backward_launches`` those of them that
+    took a bfloat16 value.
     """
     if impl == "auto":
         impl = "cuda" if value.is_cuda else "torch"
@@ -128,3 +132,5 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence,
 
 ms_deform_attn.launches = 0
 ms_deform_attn.backward_launches = 0
+ms_deform_attn.bf16_launches = 0
+ms_deform_attn.bf16_backward_launches = 0

@@ -76,6 +76,8 @@ class WindowAttnFunction(torch.autograd.Function):
         ctx.window = (n, num_heads, wh, ww)
         outs = _ext.window_attn_fwd(qs, ks, vs, keeps, num_heads, wh, ww)
         window_attention_levels.launches += 1
+        window_attention_levels.bf16_launches += (
+            qs[0].dtype == torch.bfloat16)
         return tuple(outs)
 
     @staticmethod
@@ -87,6 +89,8 @@ class WindowAttnFunction(torch.autograd.Function):
         dqs, dks, dvs = _ext.window_attn_bwd(qs, ks, vs, keeps, gs,
                                              num_heads, wh, ww)
         window_attention_levels.backward_launches += 1
+        window_attention_levels.bf16_backward_launches += (
+            qs[0].dtype == torch.bfloat16)
         return (None,) * 4 + (*dqs, *dks, *dvs) + (None,) * n
 
 
@@ -103,7 +107,8 @@ def window_attention_levels(qs, ks, vs, keeps, num_heads: int, wh: int = 8,
     plain version; 'cuda' runs ``WindowAttnFunction`` (one forward and one
     backward launch for all levels) or raises; it never falls back.
     ``window_attention_levels.launches`` and ``.backward_launches`` count
-    the kernel launches.
+    the kernel launches, ``.bf16_launches`` and ``.bf16_backward_launches``
+    those of them that took bfloat16 rasters.
     """
     if not len(qs) == len(ks) == len(vs) == len(keeps) > 0:
         raise ValueError(f"level lists of lengths {len(qs)}, {len(ks)}, "
@@ -126,6 +131,8 @@ def window_attention_levels(qs, ks, vs, keeps, num_heads: int, wh: int = 8,
 
 window_attention_levels.launches = 0
 window_attention_levels.backward_launches = 0
+window_attention_levels.bf16_launches = 0
+window_attention_levels.bf16_backward_launches = 0
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

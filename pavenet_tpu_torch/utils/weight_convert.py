@@ -1,4 +1,5 @@
-"""JAX variables -> the port's ``state_dict``.
+"""JAX variables -> the port's ``state_dict``, and the port's BatchNorm
+statistics back to the JAX ``batch_stats`` layout.
 
 The port names its modules after the JAX parameter tree, so the conversion
 is a walk over the tree: the path becomes the dotted key and each leaf is
@@ -10,7 +11,9 @@ renamed and laid out by fixed rules:
   ``bias (H, D)`` -> ``(H*D,)``; ``out`` ``kernel (H, D, C)`` ->
   ``weight (C, H*D)``
 - norm ``scale`` -> ``weight``; ``batch_stats`` ``mean``/``var`` ->
-  ``running_mean``/``running_var``
+  ``running_mean``/``running_var`` (flax ``BatchNorm`` and the JAX
+  ``FrozenBatchNorm`` alike; the port's norms keep no
+  ``num_batches_tracked``)
 - free parameters (embeddings) keep their names.
 
 The fused per-frame ``sampling_offsets``/``attention_weights`` Dense layers
@@ -97,3 +100,21 @@ def load_jax_variables(model: nn.Module, variables: Mapping):
     if missing or result.unexpected_keys:
         raise KeyError(f"JAX variables do not fit the model: missing "
                        f"{missing}, unexpected {result.unexpected_keys}")
+
+
+def batch_stats_to_numpy(model: nn.Module) -> Dict:
+    """The model's BatchNorm statistics as a JAX ``batch_stats`` tree of
+    numpy float32 arrays (``{'backbone': {'layer2_0': {'bn1': {'mean': ...,
+    'var': ...}}}}``), the reverse of the ``batch_stats`` half of
+    :func:`jax_variables_to_state_dict`."""
+    names = {v: k for k, v in STATS.items()}
+    tree: Dict = {}
+    for key, buf in model.state_dict().items():
+        *path, leaf = key.split(".")
+        if leaf not in names:
+            continue
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[names[leaf]] = buf.detach().float().cpu().numpy()
+    return tree

@@ -102,8 +102,9 @@ def test_plan_covers_every_query(shapes, B, Q, H, P, D):
 def test_plan_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="levels"):
         _ext.msda_plan(((2, 2),) * 9, 1, 4, 1, 4, 32, torch.float32)
-    with pytest.raises(ValueError, match="head size"):
-        _ext.msda_plan(SMALL, 1, 4, 1, 4, 16, torch.float32)
+    for D in (12, 512):       # not a power of two; wider than a head
+        with pytest.raises(ValueError, match="head size"):
+            _ext.msda_plan(SMALL, 1, 4, 1, 4, D, torch.float32)
     with pytest.raises(TypeError, match="dtype"):
         _ext.msda_plan(SMALL, 1, 4, 1, 4, 32, torch.float16)
 
