@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, train step and encoder distillation
-once on one CUDA card: the flagship (deformable encoder) in f32 and bf16,
-its from-scratch recipe (trainable BatchNorm), and its windowed-encoder
-variant.
+"""Drive the PyTorch port's serving, train step, encoder distillation and
+dataset-to-AP CLIs once on one CUDA card: the flagship (deformable
+encoder) in f32 and bf16, its from-scratch recipe (trainable BatchNorm),
+and its windowed-encoder variant.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parent DIR   # only phases 1-3 and the comparison
@@ -43,7 +43,7 @@ non-zero):
    unshifted and shifted, with bucket padding and one fully masked window
    per level; a 1x2 level; head size 8 (C=64) at the tiny config's levels;
    head sizes 16 and 64 (C=128, 512) at the flagship levels (the f32
-   backward at 64, which the kernel leaves out, must refuse); f32 and
+   backward at 64 through the kernel's recomputing layout); f32 and
    bf16. Times per layer of kernel, plain (a loop over the levels),
    ``scaled_dot_product_attention`` on the partitioned layout (its level
    calls in turn; timed only) and the bound; then a per-level breakdown.
@@ -84,12 +84,28 @@ non-zero):
    weights changed; then one step cuda against torch (MSE and rel within
    1e-5, gradient norm within 1e-3).
 
+14. dataset to AP: writes synthetic PoseTrack scenes at 448x768 (6 train
+   and 3 val videos of 4 frames) under ``build/chip_data/``; trains the
+   from-scratch recipe through ``pavenet_tpu_torch.tools.train.main``
+   (``ClipLoader``, the uint8 feed normalised on the card) for 8
+   mini-steps, 11+11 msda launches each, then again with
+   ``--auto-resume`` to step 10 (the update count and the schedule's lr
+   continue from the checkpoint); tests the checkpoint through
+   ``tools.test.main`` in f32 and bf16, 11 msda launches per clip, with the
+   eval loop's ms/clip (host pipeline included) and the metrics; holds
+   ``impl="cuda"`` against ``impl="torch"`` (TF32 off): ``run_inference``
+   each on its own top-k, Mean AP within 0.1 point; clip by clip on the
+   plain path's top-k (the head's ``topk_idx``), keep equal and keypoints
+   within 1e-2 px; and ``apis/prep.py`` on the card against the host
+   Normalize chain (1e-5).
+
 Each run sets every launch count to 0 just before it and reads them just
 after. The last two lines are the kernels' JSON record (launches by run,
 bf16 launches beside them) and the contract line
 ``{"ok": true, "device": {...}}``.
 """
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -135,6 +151,12 @@ BF16_FLOPS = 989e12
 # forward 4 corner FMAs + the weighted sum; backward the bilinear value,
 # its x and y derivatives, three dot products and four scaled atomics
 FWD_FLOPS, BWD_FLOPS = 10, 34
+# phase 14: the scenes and the two train runs' mini-steps
+CHIP_DATA = ROOT / "build" / "chip_data"
+CHIP_WORK = ROOT / "build" / "chip_work"
+E2E_SCENES = ["--train-videos", "6", "--val-videos", "3", "--frames", "4",
+              "--height", "448", "--width", "768", "--seed", "0"]
+E2E_STEPS, E2E_RESUMED_STEPS = 8, 10
 # msda kernel vs plain: max abs error within these fractions of the plain
 # version's max |out| (|grad|), f32 and bf16
 MSDA_FWD_TOL = (("float32", 1e-5), ("bfloat16", 1e-2))
@@ -682,14 +704,6 @@ def check_window(ext):
             print("window fwd", json.dumps(rec), flush=True)
             fwd.append(rec)
 
-            if C // heads not in ext.window_head_dims(True, dtype):
-                try:     # a size the backward leaves out raises, naming
-                    ext.window_attn_bwd(qs, ks, vs, keeps, gs, heads)
-                except ValueError as e:
-                    print(f"window bwd {name} {dtype}: refused ({e})",
-                          flush=True)
-                    continue
-                raise AssertionError(f"window bwd {name} {dtype} launched")
             got = ext.window_attn_bwd(qs, ks, vs, keeps, gs, heads)
             torch.cuda.synchronize()
             flat = [x for lv in ins for x in lv]
@@ -1205,6 +1219,154 @@ def distill(smi):
     return launches
 
 
+def e2e_options():
+    """``--cfg-options`` pointing the config's three splits at the
+    scenes."""
+    return ["--cfg-options"] + [
+        f"data.{split}.{key}={CHIP_DATA}/{value}"
+        for split, json_name in (("train", "train"), ("val", "val"),
+                                 ("test", "val"))
+        for key, value in (("ann_file", f"{json_name}.json"),
+                           ("img_prefix", ""))]
+
+
+def dataset_to_ap(smi):
+    """Phase 14: scenes, the train CLI, its resume, the test CLI in f32 and
+    bf16, cuda against torch on the checkpoint, and the prep on the card.
+    Returns the runs' launches."""
+    import shutil
+    import numpy as np
+    import torch
+    from pavenet_tpu_torch.apis.inference import build_model
+    from pavenet_tpu_torch.apis.prep import device_prep
+    from pavenet_tpu_torch.apis.test import evaluate_dataset, run_inference
+    from pavenet_tpu_torch.apis.train import model_feed
+    from pavenet_tpu_torch.datasets import ClipLoader, synthetic
+    from pavenet_tpu_torch.datasets.pipelines import build_test_pipeline
+    from pavenet_tpu_torch.tools import test as test_cli
+    from pavenet_tpu_torch.tools import train as train_cli
+    from pavenet_tpu_torch.utils.checkpoint import restore_variables
+
+    for d in (CHIP_DATA, CHIP_WORK):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    synthetic.main(["--root", str(CHIP_DATA)] + E2E_SCENES)
+    print(f"scenes: {time.perf_counter() - t0:.2f} s to write "
+          f"{' '.join(E2E_SCENES)}", flush=True)
+    config = str(ROOT / SYNTHETIC_CONFIG)
+    opts = e2e_options()
+    per_step = {"msda_fwd": CALLS_PER_CLIP, "msda_bwd": CALLS_PER_CLIP}
+    runs, trained = {}, {}
+    for name, steps in (("e2e_train_f32", ["--max-steps", str(E2E_STEPS)]),
+                        ("e2e_resume_f32", ["--auto-resume", "--max-steps",
+                                            str(E2E_RESUMED_STEPS)])):
+        reset_launches()
+        res = train_cli.main([config, "--work-dir", str(CHIP_WORK)] + steps
+                             + opts)
+        runs[name] = read_launches()
+        check_launches(f"{name}, {res['steps_run']} mini-steps", runs[name],
+                       per_step, res["steps_run"])
+        trained[name] = res
+        print(f"{name}: tools.train.main {' '.join(steps)}: step "
+              f"{res['steps']}, {res['updates']} updates, next lr "
+              f"{res['lr']:.6g}, resumed from {res['resumed_from']}; "
+              f"launches {json.dumps(runs[name])}; {res['step_ms']:.2f} ms "
+              f"per mini-step (median, host clock, loader wait included), "
+              f"data_time {res['data_time_ms']:.2f} ms (median host wait on "
+              f"the loader); losses {json.dumps(res['losses'])} | {smi}",
+              flush=True)
+    first, second = trained["e2e_train_f32"], trained["e2e_resume_f32"]
+    # the synthetic recipe: one update per mini-step, linear warmup over 500
+    base_lr, warmup, ratio = 1e-4, 500, 0.001
+    want_lr = base_lr * (1 - (1 - E2E_RESUMED_STEPS / warmup) * (1 - ratio))
+    if not (first["steps"] == first["updates"] == E2E_STEPS
+            and second["resumed_from"] == first["checkpoint"]
+            and second["steps_run"] == E2E_RESUMED_STEPS - E2E_STEPS
+            and second["updates"] == E2E_RESUMED_STEPS
+            and abs(second["lr"] - want_lr) <= 1e-12):
+        raise AssertionError(f"resume did not continue the run: {first} -> "
+                             f"{second}; lr expected {want_lr}")
+    ckpt = second["checkpoint"]
+
+    eval_ms = {}
+    for dtype in ("f32", "bf16"):
+        reset_launches()
+        res = test_cli.main([config, ckpt, "--dtype", dtype, "--out",
+                             str(CHIP_WORK / f"dets_{dtype}.json")] + opts)
+        name = f"e2e_test_{dtype}"
+        runs[name] = read_launches()
+        check_launches(f"{name}, {res['clips']} clips", runs[name],
+                       expect({"msda_fwd": CALLS_PER_CLIP}, dtype),
+                       res["clips"])
+        eval_ms[dtype] = res["ms_per_clip"]
+        print(f"{name}: tools.test.main on {os.path.basename(ckpt)}: "
+              f"{res['clips']} clips, {res['detections']} detections, "
+              f"launches {json.dumps(runs[name])}; eval loop "
+              f"{res['ms_per_clip']:.2f} ms/clip (host pipeline included; "
+              f"first clip {res['first_clip_s']:.2f} s); metrics "
+              f"{json.dumps(res['metrics'])} | {smi}", flush=True)
+
+    # cuda against torch on the checkpoint, TF32 off: the eval loop end to
+    # end, each path on its own top-k (Mean AP), then clip by clip on the
+    # plain path's top-k: the decoder's query slots carry learned
+    # embeddings, so two proposal scores tied to float rounding that swap
+    # places in the top-k change every output of the two slots
+    tf32(False)
+    cfg = train_cli.load_config(config, opts[1:])
+    kwargs, img_norm = train_cli.eval_pipeline_kwargs(cfg)
+    dataset = train_cli.build_dataset(cfg, "test",
+                                      build_test_pipeline(**kwargs))
+    models, metrics = {}, {}
+    for impl in ("cuda", "torch"):
+        models[impl] = build_model(cfg, impl=impl).cuda().eval()
+        models[impl].load_state_dict(restore_variables(ckpt))
+        metrics[impl] = evaluate_dataset(dataset, run_inference(
+            models[impl], ClipLoader(dataset, batch_size=1, shuffle=False,
+                                     drop_last=False), img_norm=img_norm))
+    kpt_err, own_topk = 0.0, 0
+    for batch in ClipLoader(dataset, batch_size=1, shuffle=False,
+                            drop_last=False):
+        feed = model_feed(batch, "cuda", img_norm)
+        with torch.inference_mode():
+            topk = models["torch"].forward_outputs(
+                feed["img"], feed["img_shape"])["topk_idx"]
+            own_topk += torch.equal(topk, models["cuda"].forward_outputs(
+                feed["img"], feed["img_shape"])["topk_idx"])
+            got, want = (models[impl].forward_test(feed, topk_idx=topk)
+                         for impl in ("cuda", "torch"))
+        if not torch.equal(got["keep"], want["keep"]):
+            raise AssertionError(f"cuda vs torch, image {batch['image_id']}"
+                                 f": keep {got['keep']} vs {want['keep']}")
+        gap = got["det_kpts"][..., :2] - want["det_kpts"][..., :2]
+        kpt_err = max(kpt_err, gap.abs().max().item())
+    ap = {impl: m["posetrack/Mean"] for impl, m in metrics.items()}
+    if not (kpt_err <= 1e-2 and abs(ap["cuda"] - ap["torch"]) <= 0.1):
+        raise AssertionError(f"cuda vs torch on {ckpt}: keypoints {kpt_err} "
+                             f"px, Mean AP {ap}")
+    print(f"e2e parity: impl=cuda vs impl=torch on {os.path.basename(ckpt)},"
+          f" TF32 off: run_inference posetrack/Mean {ap['cuda']:.4f} vs "
+          f"{ap['torch']:.4f} (limit 0.1), {own_topk} of {len(dataset)} "
+          f"clips with the same top-k; on the plain path's top-k, keep equal"
+          f" and keypoints within {kpt_err:.3e} px (limit 1e-2)", flush=True)
+    tf32(True)
+
+    # the uint8 feed normalised on the card against the host chain
+    u8, host = (next(iter(ClipLoader(train_cli.build_dataset(
+        cfg, "test", build_test_pipeline(**dict(
+            kwargs, normalize_on_device=on))), batch_size=2,
+        shuffle=False, prefetch=0))) for on in (True, False))
+    got = device_prep({k: torch.from_numpy(u8[k]).cuda()
+                       for k in ("img", "img_shape")}, img_norm)["img"]
+    err = (got.cpu() - torch.from_numpy(host["img"])).abs().max().item()
+    if not (u8["img"].dtype == np.uint8 and err <= 1e-5):
+        raise AssertionError(f"prep on the card vs host Normalize: {err}")
+    print(f"prep: uint8 {tuple(u8['img'].shape)} normalised on the card vs "
+          f"the host Normalize -> PadToBucket chain: max abs err {err:.3e} "
+          f"(limit 1e-5); eval ms/clip f32 {eval_ms['f32']:.2f}, bf16 "
+          f"{eval_ms['bf16']:.2f} | {smi}", flush=True)
+    return runs
+
+
 def kernel_record(name, records, launches, replaces, **extra):
     """The kernel's line: ``ms``, ``plain_ms``, ``library_ms`` and
     ``bound_ms`` of one main-path call (msda: the encoder call on
@@ -1313,6 +1475,10 @@ def main(argv=None):
     train_parity(WINDOWED_CONFIG, fixed_topk=True)
     torch.cuda.empty_cache()
     runs["distill_f32"] = distill(smi)
+    torch.cuda.empty_cache()
+
+    # 14. dataset to AP through the CLIs
+    runs.update(dataset_to_ap(smi))
     print("serve forward_test ms/clip, f32 / bf16: " + ", ".join(
         f"{m} {serve_ms[(m, 'f32')]:.2f} / {serve_ms[(m, 'bf16')]:.2f}"
         for m in ("flagship", "windowed")) + f" | {smi}", flush=True)

@@ -68,7 +68,8 @@ def host_batch(imgs, num_frames: int, img_scale=(1333, 800)) -> dict:
     for t in (Resize(img_scale), Normalize(), PadToBucket(DEFAULT_BUCKETS),
               FormatBatch()):
         results = t(results)
-    return {k: v[None] for k, v in results.items()}
+    return {k: np.asarray(results[k])[None]
+            for k in ("img", "img_shape", "scale_factor")}
 
 
 def inference_detector(model: VideoPoseDetector,

@@ -18,7 +18,18 @@ set_to_zero})))``. Its semantics, kept here:
 - trainable BatchNorm updates its running statistics in every mini-step's
   forward, whether the step applies an update or only accumulates;
 - parameters and optimizer state stay float32 whatever the model's
-  activation dtype.
+  activation dtype;
+- with an ``EMAHook`` in the config's ``custom_hooks``, an exponential
+  moving average of the parameters, ``e * d + p * (1 - d)`` with
+  ``d = 1 - momentum``, follows every mini-step (as ``make_train_step``'s
+  ``ema_decay``).
+
+A batch is a ``dummy_clip_batch`` or a ``datasets/loader.py::ClipLoader``
+batch: only the keys the model reads go to the device (``MODEL_KEYS``), and
+a uint8 image is normalised there (``apis/prep.py``, with the mean and std
+of the config's ``train_pipeline_kwargs``). ``TrainState.state_dict``
+holds the whole run (model, optimizer, counts, accumulated gradient, EMA,
+dropout generator) for ``utils/checkpoint.py``.
 """
 from __future__ import annotations
 
@@ -33,6 +44,11 @@ from ..config import Config
 from ..models.detectors.videopose import VideoPoseDetector
 from ..models.layers.transformer import Dropout
 from .inference import build_model
+from .prep import IMG_NORM_MEAN, IMG_NORM_STD, device_prep
+
+# the batch keys the model reads, in training and in serving
+MODEL_KEYS = ("img", "img_shape", "scale_factor", "gt_keypoints",
+              "gt_areas", "gt_valid")
 
 
 def _param_label(name: str, frozen_stages: int = 1,
@@ -160,6 +176,37 @@ class TrainState:
     mini_step: int = 0           # mini-batches since the last update
     updates: int = 0             # applied updates (the schedule's count)
     acc: Optional[List[torch.Tensor]] = None   # mean of the mini-batch grads
+    img_norm: tuple = (IMG_NORM_MEAN, IMG_NORM_STD)   # of a uint8 feed
+    ema_decay: float = 0.0
+    ema: Optional[List[torch.Tensor]] = None   # EMA of the parameters
+
+    @property
+    def steps(self) -> int:
+        """Mini-steps taken."""
+        return self.updates * self.accumulate_steps + self.mini_step
+
+    @property
+    def lr(self) -> float:
+        """The base lr of the next update."""
+        return self.schedule(self.updates)
+
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs to continue this one exactly."""
+        return dict(model=self.model.state_dict(),
+                    optimizer=self.optimizer.state_dict(),
+                    mini_step=self.mini_step, updates=self.updates,
+                    acc=self.acc, ema=self.ema,
+                    generator=self.generator.get_state())
+
+    def load_state_dict(self, sd: Mapping):
+        device = next(self.model.parameters()).device
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.mini_step, self.updates = sd["mini_step"], sd["updates"]
+        self.acc, self.ema = ([t.to(device) for t in sd[k]]
+                              if sd[k] is not None else None
+                              for k in ("acc", "ema"))
+        self.generator.set_state(sd["generator"])
 
 
 def init_trainer(config: Union[str, Mapping], device="cuda", seed: int = 0,
@@ -169,9 +216,11 @@ def init_trainer(config: Union[str, Mapping], device="cuda", seed: int = 0,
     """Model (``variables`` or a random init from ``seed``) on ``device`` in
     train mode, with the optimizer, schedule and accumulation of the
     config's ``optimizer``, ``optimizer_config``, ``lr_config`` and
-    ``runner`` (as ``tools/train.py``); dropout masks come from a generator
-    seeded with ``seed``. ``steps_per_epoch`` (mini-batches) places the
-    schedule's epoch boundaries. ``dtype`` is the activation dtype (as
+    ``runner``, the EMA of its ``custom_hooks`` and the uint8 feed's mean
+    and std of its ``train_pipeline_kwargs`` (as ``tools/train.py``);
+    dropout masks come from a generator seeded with ``seed``.
+    ``steps_per_epoch`` (mini-batches) places the schedule's epoch
+    boundaries. ``dtype`` is the activation dtype (as
     ``build_model``; ``tools/train.py --dtype``); parameters and optimizer
     state stay float32."""
     if isinstance(config, str):
@@ -193,11 +242,21 @@ def init_trainer(config: Union[str, Mapping], device="cuda", seed: int = 0,
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+    ema_decay = 0.0
+    for hook in config.get("custom_hooks", []) or []:
+        if hook.get("type", "").endswith("EMAHook"):
+            ema_decay = 1.0 - hook.get("momentum", 0.0002)
+    pipe = config.get("train_pipeline_kwargs", {}) or {}
     return TrainState(
         model=model, optimizer=optimizer, schedule=schedule,
         grad_clip=hook_cfg.get("grad_clip", {}).get("max_norm", 0.1),
         accumulate_steps=hook_cfg.get("cumulative_iters", 8),
-        generator=generator, max_gt=config.get("max_gt", 30))
+        generator=generator, max_gt=config.get("max_gt", 30),
+        img_norm=(tuple(pipe.get("img_norm_mean", IMG_NORM_MEAN)),
+                  tuple(pipe.get("img_norm_std", IMG_NORM_STD))),
+        ema_decay=ema_decay,
+        ema=([p.detach().clone() for p in model.parameters()]
+             if ema_decay > 0 else None))
 
 
 def to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:
@@ -243,13 +302,32 @@ def accumulate(state: TrainState):
         apply_update(state)
 
 
+def model_feed(batch: Mapping, device, img_norm=(IMG_NORM_MEAN,
+                                                 IMG_NORM_STD)) -> dict:
+    """The keys of ``batch`` that the model reads, on ``device``, a uint8
+    image normalised there."""
+    return device_prep(to_device({k: batch[k] for k in MODEL_KEYS
+                                  if k in batch}, device), img_norm)
+
+
+def update_ema(state: TrainState):
+    """``e = e * d + p * (1 - d)`` over every parameter."""
+    if state.ema is None:
+        return
+    d = state.ema_decay
+    with torch.no_grad():
+        for e, p in zip(state.ema, state.model.parameters()):
+            e.copy_(e * d + p * (1 - d))
+
+
 def train_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
-    """One mini-batch: forward, backward and ``accumulate``. Returns the
-    detached losses."""
+    """One mini-batch: forward, backward, ``accumulate`` and the EMA.
+    Returns the detached losses."""
     model = state.model
     model.train()
-    losses = model.forward_train(
-        to_device(batch, next(model.parameters()).device))
+    losses = model.forward_train(model_feed(
+        batch, next(model.parameters()).device, state.img_norm))
     losses["loss"].backward()
     accumulate(state)
+    update_ema(state)
     return {k: v.detach() for k, v in losses.items()}

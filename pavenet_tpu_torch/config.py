@@ -3,18 +3,22 @@
 
 A config is a python file whose top-level variables form a dict; ``_base_``
 lists parent files that are deep-merged (child wins) and ``_delete_=True``
-inside a dict drops the inherited value. ``resolve_act_dtype`` reads the
-model's activation dtype from a config (the JAX package keeps it in its
-``models/builder.py``).
+inside a dict drops the inherited value. ``Config.merge_from_dict`` applies
+``a.b.c=value`` overrides (the CLIs' ``--cfg-options``, parsed by
+``DictAction``); ``replace_cfg_vals`` substitutes ``${key}`` strings and
+``update_data_root`` moves dataset paths under ``MMDET_DATASETS``.
+``resolve_act_dtype`` reads the model's activation dtype from a config (the
+JAX package keeps it in its ``models/builder.py``).
 """
 from __future__ import annotations
 
 import copy
 import importlib.util
 import os
+import re
 import sys
 import types
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -43,17 +47,23 @@ def _to_config_dict(obj):
     return obj
 
 
-def _merge_a_into_b(a: dict, b: dict) -> dict:
-    """Deep-merge dict ``a`` (child) into ``b`` (base)."""
+def _merge_a_into_b(a: dict, b: dict, allow_list_keys: bool = False) -> dict:
+    """Deep-merge dict ``a`` (child) into ``b`` (base); with
+    ``allow_list_keys`` a digit key of ``a`` indexes a list of ``b``."""
     b = copy.deepcopy(b)
     for k, v in a.items():
-        if isinstance(v, dict):
+        if allow_list_keys and k.isdigit() and isinstance(b, list):
+            k = int(k)
+            if len(b) <= k:
+                raise KeyError(f"index {k} exceeds list length {len(b)}")
+            b[k] = _merge_a_into_b(v, b[k], allow_list_keys)
+        elif isinstance(v, dict):
             if k in b and not v.pop(DELETE_KEY, False):
                 if not isinstance(b[k], dict):
                     raise TypeError(
                         f"cannot merge dict into non-dict for key '{k}'; "
                         f"add `{DELETE_KEY}=True` to override")
-                b[k] = _merge_a_into_b(v, b[k])
+                b[k] = _merge_a_into_b(v, b[k], allow_list_keys)
             else:
                 b[k] = copy.deepcopy(v)
                 if isinstance(b[k], dict):
@@ -105,6 +115,112 @@ class Config(ConfigDict):
     @staticmethod
     def fromfile(filename: str) -> "Config":
         return Config(_to_config_dict(_file2dict(filename)))
+
+    def merge_from_dict(self, options: Dict[str, Any]):
+        """Apply ``{'a.b.c': v}``-style overrides in place; a digit key
+        indexes a list."""
+        option_cfg: Dict[str, Any] = {}
+        for full_key, v in options.items():
+            d = option_cfg
+            keys = full_key.split(".")
+            for sub in keys[:-1]:
+                d = d.setdefault(sub, {})
+            d[keys[-1]] = v
+        merged = _merge_a_into_b(option_cfg, dict(self),
+                                 allow_list_keys=True)
+        self.clear()
+        self.update(_to_config_dict(merged))
+
+
+class DictAction:
+    """Parser of ``KEY=VALUE`` config overrides: ints, floats, true/false,
+    None and comma lists become Python values."""
+
+    @staticmethod
+    def parse_value(val: str):
+        for fn in (int, float):
+            try:
+                return fn(val)
+            except ValueError:
+                pass
+        if val.lower() in ("true", "false"):
+            return val.lower() == "true"
+        if val == "None":
+            return None
+        if "," in val or (val.startswith("[") and val.endswith("]")) or (
+                val.startswith("(") and val.endswith(")")):
+            inner = val.strip("[]()")
+            return [DictAction.parse_value(x) for x in inner.split(",") if x]
+        return val
+
+    @staticmethod
+    def parse(pairs: List[str]) -> Dict[str, Any]:
+        out = {}
+        for pair in pairs:
+            key, _, val = pair.partition("=")
+            out[key] = DictAction.parse_value(val)
+        return out
+
+
+_VAR_PATTERN = re.compile(r"\$\{[a-zA-Z\d_.]*\}")
+
+
+def replace_cfg_vals(cfg: Config) -> Config:
+    """Substitute ``"${key.path}"`` strings with config values. A string
+    that is exactly one ``${...}`` takes the referenced value verbatim (any
+    type); embedded occurrences are str-interpolated. A ``model_wrapper``
+    key, if present, replaces ``model``."""
+
+    def get_value(key):
+        node = cfg
+        for k in key.split("."):
+            node = node[k]
+        return node
+
+    def replace(value):
+        if isinstance(value, dict):
+            return {k: replace(v) for k, v in value.items()}
+        if isinstance(value, list):
+            return [replace(v) for v in value]
+        if isinstance(value, tuple):
+            return tuple(replace(v) for v in value)
+        if isinstance(value, str):
+            keys = _VAR_PATTERN.findall(value)
+            if not keys:
+                return value
+            if len(keys) == 1 and keys[0] == value:
+                return get_value(keys[0][2:-1])
+            for key in keys:
+                sub = get_value(key[2:-1])
+                if isinstance(sub, (dict, list, tuple)):
+                    raise TypeError(
+                        f"cannot str-interpolate {type(sub)} for {key}")
+                value = value.replace(key, str(sub))
+            return value
+        return value
+
+    new = Config(_to_config_dict(replace(dict(cfg))))
+    if new.get("model_wrapper") is not None:
+        new["model"] = new.pop("model_wrapper")
+    return new
+
+
+def update_data_root(cfg: Config) -> None:
+    """With the environment's ``MMDET_DATASETS`` set, replace the
+    ``data_root`` prefix of every string of the config by it, in place."""
+    dst = os.environ.get("MMDET_DATASETS")
+    if not dst or "data_root" not in cfg:
+        return
+    src = cfg["data_root"]
+
+    def walk(d):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif isinstance(v, str) and src in v:
+                d[k] = v.replace(src, dst)
+    walk(cfg)
+    cfg["data_root"] = dst
 
 
 _DTYPE_NAMES = {

@@ -1,1 +1,2 @@
-"""Matching and targets of the train step."""
+"""Matching and targets of the train step, keypoint utilities, and the
+keypoint evaluators (``eval/``)."""

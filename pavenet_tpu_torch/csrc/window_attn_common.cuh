@@ -365,9 +365,11 @@ __device__ __forceinline__ void transposed_by_rows(
 // scale, so each is one exp2 (rounding the folded argument costs under
 // 1e-6 relative at the score ranges of a window); a masked score stays
 // -1e9, which is as far below any kept one in either base.
+// stats returns each row's max and 1 / sum: (m0, m1, 1/l0, 1/l1).
 __device__ __forceinline__ void masked_softmax(float (&s)[16][4],
                                                const float* keep,
-                                               float scale2) {
+                                               float scale2,
+                                               float (&stats)[4]) {
   const int t = threadIdx.x & 3;
   float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
@@ -408,6 +410,17 @@ __device__ __forceinline__ void masked_softmax(float (&s)[16][4],
     s[j][2] *= i1;
     s[j][3] *= i1;
   }
+  stats[0] = m0;
+  stats[1] = m1;
+  stats[2] = i0;
+  stats[3] = i1;
+}
+
+__device__ __forceinline__ void masked_softmax(float (&s)[16][4],
+                                               const float* keep,
+                                               float scale2) {
+  float stats[4];
+  masked_softmax(s, keep, scale2, stats);
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {

@@ -266,11 +266,13 @@ class VideoPoseDetector(nn.Module):
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def forward_test(self, batch):
+    def forward_test(self, batch, topk_idx=None):
         """Padded detections per image, in the original image's pixels:
         det_kpts (B, M, K, 3), det_bboxes (B, M, 5), det_labels (B, M),
-        keep (B, M) (OKS-NMS)."""
-        outs = self.forward_outputs(batch["img"], batch["img_shape"])
+        keep (B, M) (OKS-NMS). ``topk_idx``: the head's selection hook, as
+        in ``forward_outputs``."""
+        outs = self.forward_outputs(batch["img"], batch["img_shape"],
+                                    topk_idx=topk_idx)
         B = batch["img"].shape[0]
         K, M = self.num_keypoints, self.max_per_img
 

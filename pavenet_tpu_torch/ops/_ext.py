@@ -55,13 +55,11 @@ MSDA_MAX_LEVELS = 8
 MSDA_SMEM_BYTES = 232448 - 128
 MSDA_SM_SMEM_BYTES = 233472
 MSDA_BLOCKS_PER_CALL = {False: 4 * 132, True: 8 * 132}
-# head sizes the window-attention kernels are compiled for: the tiny debug
-# configs' 64 / 8, 128 / 8, the flagship's 256 / 8 and 512 / 8, except the
-# float32 backward at 64, whose staged P and dS with q, k, v and g (276 KB)
-# exceed a block's 227 KB; the window is 128 tokens and one launch takes at
-# most WINDOW_MAX_LEVELS level rasters
+# head sizes the window-attention kernels are compiled for, both directions
+# and dtypes: the tiny debug configs' 64 / 8, 128 / 8, the flagship's 256 / 8
+# and 512 / 8; the window is 128 tokens and one launch takes at most
+# WINDOW_MAX_LEVELS level rasters
 WINDOW_HEAD_DIMS = (8, 16, 32, 64)
-WINDOW_F32_BWD_HEAD_DIMS = (8, 16, 32)
 WINDOW_TOKENS = 128
 WINDOW_MAX_LEVELS = 8
 
@@ -320,13 +318,6 @@ def window_level_table(shapes, wh: int = 8, ww: int = 16):
     return table, first
 
 
-def window_head_dims(backward: bool, dtype) -> tuple:
-    """The head sizes of the window-attention kernel of one direction and
-    dtype."""
-    return (WINDOW_F32_BWD_HEAD_DIMS if backward and dtype == torch.float32
-            else WINDOW_HEAD_DIMS)
-
-
 def _check_window(name: str, qs, num_heads: int, wh: int, ww: int,
                   **lists):
     """Check the level lists of a window-attention launch; returns
@@ -344,11 +335,10 @@ def _check_window(name: str, qs, num_heads: int, wh: int, ww: int,
         raise ValueError(f"{name}: expected (B, Hp, Wp, C) rasters, got "
                          f"{tuple(q0.shape)}")
     C = q0.shape[3]
-    dims = window_head_dims(name.endswith("bwd"), q0.dtype)
-    if C % num_heads or C // num_heads not in dims:
+    if C % num_heads or C // num_heads not in WINDOW_HEAD_DIMS:
         raise ValueError(f"{name}: head size C / num_heads = {C} / "
-                         f"{num_heads} not in {dims}, the head sizes the "
-                         f"kernel takes in {q0.dtype}")
+                         f"{num_heads} not in {WINDOW_HEAD_DIMS}, the head "
+                         "sizes the kernel takes")
     for key, ts in lists.items():
         if len(ts) != n:
             raise ValueError(f"{name}: {len(ts)} {key} for {n} levels")

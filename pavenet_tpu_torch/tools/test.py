@@ -1,0 +1,87 @@
+"""Evaluate a checkpoint on a dataset (as ``tools/test.py`` of the JAX
+package, keypoint models).
+
+    python -m pavenet_tpu_torch.tools.test <config.py> <checkpoint.pt>
+        [--eval keypoints] [--out dets.json] [--format-only]
+        [--dtype f32|bf16] [--device cuda|cpu] [--cfg-options k=v ...]
+
+``data.test`` through the test pipeline with the uint8 feed normalised on
+the card (unless ``test_pipeline_kwargs`` sets ``normalize_on_device``
+False), the checkpoint's model weights (``utils/checkpoint.py::
+restore_variables``), ``run_inference``, then ``--out`` and the keypoint
+metrics. ``main(argv)`` returns the metrics and the loop's timing.
+
+Not here: ``--flip-test`` and ``--aug-scales`` (test-time augmentation),
+``--show``, ``--show-dir``, ``--show-score-thr``, ``--show-wait``,
+``--compile-cache``, and the detection models' branch.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description="Test a pose model",
+        epilog="Not ported: --flip-test, --aug-scales, --show, --show-dir, "
+               "--show-score-thr, --show-wait, --compile-cache.")
+    p.add_argument("config")
+    p.add_argument("checkpoint")
+    p.add_argument("--eval", default="keypoints", choices=["keypoints"])
+    p.add_argument("--out", default=None, help="dump detections json")
+    p.add_argument("--format-only", action="store_true",
+                   help="dump --out without evaluating")
+    p.add_argument("--dtype", default="auto", choices=["auto", "f32", "bf16"],
+                   help="activation dtype ('auto' follows the config's "
+                        "act_dtype)")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--cfg-options", nargs="+", default=[])
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    import torch
+    from pavenet_tpu_torch.apis.inference import init_detector
+    from pavenet_tpu_torch.apis.test import (evaluate_dataset,
+                                             gather_detections,
+                                             run_inference)
+    from pavenet_tpu_torch.datasets import ClipLoader
+    from pavenet_tpu_torch.datasets.pipelines import build_test_pipeline
+    from pavenet_tpu_torch.tools.train import (build_dataset,
+                                               eval_pipeline_kwargs,
+                                               load_config)
+    from pavenet_tpu_torch.utils.checkpoint import restore_variables
+    from pavenet_tpu_torch.utils.logging import get_root_logger
+
+    cfg = load_config(args.config, args.cfg_options)
+    logger = get_root_logger()
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device (pass --device cpu "
+                         "to test on the CPU)")
+    model = init_detector(cfg, device=args.device, dtype=args.dtype)
+    model.load_state_dict(restore_variables(args.checkpoint))
+    kwargs, img_norm = eval_pipeline_kwargs(cfg)
+    dataset = build_dataset(cfg, "test", build_test_pipeline(**kwargs))
+    loader = ClipLoader(dataset, batch_size=1, shuffle=False,
+                        drop_last=False, num_keypoints=dataset.NUM_KEYPOINTS)
+    timing = {}
+    detections = gather_detections(run_inference(
+        model, loader, logger=logger, img_norm=img_norm, timing=timing))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(detections, f)
+        logger.info(f"wrote {len(detections)} detections to {args.out}")
+    metrics = None
+    if not args.format_only:
+        metrics = evaluate_dataset(dataset, detections)
+        for k, v in metrics.items():
+            logger.info(f"{k}: {v:.4f}")
+    return dict(metrics=metrics, detections=len(detections),
+                checkpoint=os.path.abspath(args.checkpoint), **timing)
+
+
+if __name__ == "__main__":
+    main()

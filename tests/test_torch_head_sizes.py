@@ -1,6 +1,6 @@
 """The head sizes the kernels take: msda at every power of two from 4 to
 256 (SOIT's seg encoder runs one 256-channel head), window attention at
-8, 16, 32 and 64 (the f32 backward to 32), on the CPU.
+8, 16, 32 and 64 in both directions and dtypes, on the CPU.
 
 The kernels run only on the card (``chip_smoke.py`` holds them against the
 plain versions there, phases 4, 5 and 7). Here: msda's plain version at
@@ -138,7 +138,7 @@ def test_window_plain_at_head_sizes_16_and_64_matches_pallas(C, heads):
 
 @pytest.mark.parametrize("D, dtype, backward, taken", [
     (16, torch.float32, False, True), (16, torch.float32, True, True),
-    (64, torch.float32, False, True), (64, torch.float32, True, False),
+    (64, torch.float32, False, True), (64, torch.float32, True, True),
     (64, torch.bfloat16, True, True), (128, torch.bfloat16, False, False),
     (4, torch.float32, False, False)])
 def test_window_wrappers_take_their_head_sizes(D, dtype, backward, taken):
@@ -148,8 +148,6 @@ def test_window_wrappers_take_their_head_sizes(D, dtype, backward, taken):
     keep = torch.ones(1, 8, 16)
     args = ([q], [q], [q], [keep]) + (([q],) if backward else ())
     fn = _ext.window_attn_bwd if backward else _ext.window_attn_fwd
-    match = "CUDA device" if taken else (
-        r"\(8, 16, 32\)" if backward and dtype == torch.float32
-        else r"\(8, 16, 32, 64\)")
+    match = "CUDA device" if taken else r"\(8, 16, 32, 64\)"
     with pytest.raises(ValueError, match=match):
         fn(*args, 2)

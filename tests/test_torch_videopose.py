@@ -135,13 +135,14 @@ def test_builder_maps_flagship_config_to_zoo_model():
     assert len(built) > 500
 
 
-def run_without_jax(code):
-    """Run ``code`` in a fresh interpreter at the repo root; return the
-    modules of jax, flax and the JAX package it loaded."""
+def run_without_jax(code, timeout=120):
+    """Run ``code`` in a fresh interpreter at the repo root, at most
+    ``timeout`` seconds; return the modules of jax, flax and the JAX package
+    it loaded."""
     proc = subprocess.run([sys.executable, "-c", textwrap.dedent(code) + (
         "\nprint(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'jaxlib', 'pavenet_tpu')))\n")], cwd=REPO,
-        capture_output=True, text=True, timeout=120)
+        capture_output=True, text=True, timeout=timeout)
     assert proc.returncode == 0, proc.stderr
     return proc.stdout.strip().splitlines()[-1]
 
