@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving, train step, encoder distillation and
 dataset-to-AP CLIs once on one CUDA card: the flagship (deformable
 encoder) in f32 and bf16, its from-scratch recipe (trainable BatchNorm),
-and its windowed-encoder variant.
+its windowed-encoder variant, the Swin-L and T=5 configs, flip and
+multi-scale test-time augmentation and the distillation CLI.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parent DIR   # only phases 1-3 and the comparison
@@ -16,16 +17,18 @@ non-zero):
    build time and ptxas's registers, spills and shared memory per kernel.
 3. capture: the inputs of the 11 msda calls of one flagship
    ``forward_test`` (seed 0, a synthetic clip in the 800x1344 bucket), run
-   on the plain path. With ``--parent DIR`` (a checkout of an earlier
-   commit) the run then times that commit's msda kernels against this
-   tree's on the encoder call, in-model and uniform-random, and stops.
+   on the plain path, and the encoder call of one T=5 clip (its five
+   frames folded into the batch). With ``--parent DIR`` (a checkout of an
+   earlier commit) the run then times that commit's msda kernels against
+   this tree's on the encoder call, in-model and uniform-random, and
+   stops.
 4. msda forward kernel against its plain PyTorch version at the main-path
    shapes (encoder, pose decoder, serving joint decoder Q=300, train joint
    decoder Q=450) on uniform-random inputs, plus edge levels (1-row,
    1-column, 1x1), the other head sizes at the encoder call (SOIT's seg
-   encoder, one 256-channel head at B=1; D=16 and D=64 over 8 heads), and
-   the 11 captured calls; value in f32 and bf16; times from CUDA events,
-   median of 20.
+   encoder, one 256-channel head at B=1; D=16 and D=64 over 8 heads), the
+   T=5 encoder call (B*T=5), and the 12 captured calls; value in f32 and
+   bf16; times from CUDA events, median of 20.
 5. msda backward kernel against autograd of the plain version at the
    encoder, pose decoder and train joint decoder shapes, the edge levels
    and the other head sizes, and on the captured calls (g seeded), f32 and
@@ -51,8 +54,9 @@ non-zero):
    seed) and ``inference_detector`` on 3 synthetic 720x1280 clips (800x1344
    bucket): shapes, finiteness, exactly 11 msda launches per clip (in bf16
    all 11 on bf16 values); then ``impl="cuda"`` against ``impl="torch"``
-   with TF32 off: f32 keypoints within 1e-2 px and keep equal; bf16 stage
-   by stage (memory, proposal scores, the decoders given the plain path's
+   with TF32 off: f32 keypoints within 1e-2 px and keep equal on the plain
+   path's top-k, the kernels' own top-k equal to it or a tie to rounding
+   (proposal scores within 1e-5); bf16 stage by stage (memory, proposal scores, the decoders given the plain path's
    top-k and poses) within ``BF16_STAGE_TOL``.
 9. flagship train, f32 then bf16: ``init_trainer``, 8 mini-steps of
    ``dummy_clip_batch(train=True)`` at 800x1344, B=1, 30 GT slots, which is
@@ -93,11 +97,35 @@ non-zero):
    continue from the checkpoint); tests the checkpoint through
    ``tools.test.main`` in f32 and bf16, 11 msda launches per clip, with the
    eval loop's ms/clip (host pipeline included) and the metrics; holds
-   ``impl="cuda"`` against ``impl="torch"`` (TF32 off): ``run_inference``
-   each on its own top-k, Mean AP within 0.1 point; clip by clip on the
-   plain path's top-k (the head's ``topk_idx``), keep equal and keypoints
-   within 1e-2 px; and ``apis/prep.py`` on the card against the host
-   Normalize chain (1e-5).
+   ``impl="cuda"`` against ``impl="torch"`` (TF32 off): clip by clip on
+   the plain path's top-k (the head's ``topk_idx``), keep equal,
+   keypoints within 1e-2 px and scores within 1e-5; ``run_inference``
+   each on its own top-k, Mean AP within 0.1 point; and ``apis/prep.py``
+   on the card against the host Normalize chain (1e-5).
+15. Swin-L serve: phase 8 on ``pavenet_swin_frames3_posetrack18.py``
+   (Swin-L backbone, 800x1344 bucket, T=3, 300 queries, 6/3/2 head
+   layers), f32 and bf16, 11 msda launches per clip, with peak memory.
+16. Swin-L train: phase 9 on the same config in f32 (8 mini-steps, one
+   update, 11+11 msda launches per mini-step, peak memory) and its
+   cuda-vs-torch mini-step at phase 9's limits.
+17. T=5: phases 8 and 9 on ``pavenet_r50_frames5_posetrack17.py`` in f32,
+   11 msda launches per clip and 11+11 per mini-step (the encoder at
+   B*T=5), with the cuda-vs-torch checks; the mini-step's on the plain
+   path's top-k (seed 0's proposals hold a tie to rounding, checked).
+18. (inside phase 14) ``tools.test.main --flip-test`` and ``--flip-test
+   --aug-scales 1.0 0.75`` on the checkpoint: 22 and 44 msda launches per
+   clip, eval ms/clip; cuda against torch clip by clip, every pass
+   (``forward_test_aug``, the 0.75 scale in the 384x640 bucket, its own
+   msda levels) on the plain path's top-k for the clip it runs, keypoints
+   within 1e-2 px and scores within 1e-5, and the merged detections keep
+   equal within the same limits; ``run_inference`` with the same options
+   each on its own top-k, Mean AP within 0.1 point; ``tools.distill.main``
+   from the checkpoint to the recipe's windowed student, 4 steps: 6 msda
+   and 6+6 window-attention launches per step, every entry outside the
+   encoder bit-identical to the teacher's and every encoder weight moved;
+   ``tools.test.main`` on the student (5 msda and 6 window launches per
+   clip) and the student cuda against torch clip by clip as the
+   checkpoint.
 
 Each run sets every launch count to 0 just before it and reads them just
 after. The last two lines are the kernels' JSON record (launches by run,
@@ -114,6 +142,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = "configs/videopose/pavenet_r50_frames3_posetrack17.py"
+# PAVE-Net's Swin-L config (PoseTrack18) and the T=5 config
+SWIN_CONFIG = "configs/videopose/pavenet_swin_frames3_posetrack18.py"
+FRAMES5_CONFIG = "configs/videopose/pavenet_r50_frames5_posetrack17.py"
 FLAGSHIP_LEVELS = ((100, 168), (50, 84), (25, 42), (13, 21))  # 800x1344
 EDGE_LEVELS = ((6, 9), (3, 5), (1, 3), (2, 1))
 WINDOWED_CONFIG = ("configs/videopose/"
@@ -129,6 +160,8 @@ DISTILL_STEPS = 4
 # the from-scratch recipe (trainable BatchNorm, nothing frozen, one update
 # per mini-step) at its own size
 SYNTHETIC_CONFIG = "configs/videopose/pavenet_r50_frames3_synthetic_sm.py"
+SYNTHETIC_WINDOWED_CONFIG = ("configs/videopose/"
+                             "pavenet_r50_frames3_synthetic_sm_windowed.py")
 SYNTHETIC_HW, SYNTHETIC_BATCH = (448, 768), 2
 # bf16 against the plain path, stage by stage: max abs error within this
 # fraction of the plain output's largest value (bf16 keeps 8 bits: a value
@@ -157,6 +190,10 @@ CHIP_WORK = ROOT / "build" / "chip_work"
 E2E_SCENES = ["--train-videos", "6", "--val-videos", "3", "--frames", "4",
               "--height", "448", "--width", "768", "--seed", "0"]
 E2E_STEPS, E2E_RESUMED_STEPS = 8, 10
+# phase 18: the test CLI's test-time augmentation runs (name, flip test,
+# scales) and the distillation CLI's steps
+TTA_RUNS = (("flip", True, None), ("flip_scales", True, (1.0, 0.75)))
+E2E_DISTILL_STEPS = 4
 # msda kernel vs plain: max abs error within these fractions of the plain
 # version's max |out| (|grad|), f32 and bf16
 MSDA_FWD_TOL = (("float32", 1e-5), ("bfloat16", 1e-2))
@@ -225,9 +262,10 @@ def msda_bound(backward, value, levels, loc):
 
 def kernel_cases():
     """(name, B, levels, Q, H, P, D) of the msda checks: the flagship's
-    calls, edge levels, and the other head sizes at the encoder call (the
+    calls, edge levels, the other head sizes at the encoder call (the
     flagship levels): SOIT's seg encoder (one 256-channel head, B=1), 128
-    and 512 channels over 8 heads (D=16, 64)."""
+    and 512 channels over 8 heads (D=16, 64); and the T=5 config's encoder
+    call (its five frames folded into the batch)."""
     N = sum(h * w for h, w in FLAGSHIP_LEVELS)
     return [("encoder", 3, FLAGSHIP_LEVELS, N, 8, 4, 32),
             ("pose_decoder", 3, FLAGSHIP_LEVELS, 300, 8, 15, 32),
@@ -236,7 +274,8 @@ def kernel_cases():
             ("edge_levels", 2, EDGE_LEVELS, 7, 2, 15, 4),
             ("encoder_h1_d256", 1, FLAGSHIP_LEVELS, N, 1, 4, 256),
             ("encoder_d16", 3, FLAGSHIP_LEVELS, N, 8, 4, 16),
-            ("encoder_d64", 3, FLAGSHIP_LEVELS, N, 8, 4, 64)]
+            ("encoder_d64", 3, FLAGSHIP_LEVELS, N, 8, 4, 64),
+            ("encoder_frames5", 5, FLAGSHIP_LEVELS, N, 8, 4, 32)]
 
 
 def forward_record(case, v, levels, loc, attn, rel_tol, ms_deform_attn,
@@ -358,21 +397,22 @@ def check_backward(ext, ms_deform_attn_torch, captured):
     return records
 
 
-def capture_in_model():
-    """The inputs of every msda call of one flagship ``forward_test`` (seed
-    0, the first timed synthetic clip in the 800x1344 bucket), run on the
-    plain path so that no kernel takes part: ``[(name, value, levels, loc,
-    attn)]``, named encoder0-5, pose_decoder0-2, joint_decoder0-1 in call
-    order."""
+def capture_in_model(config=CONFIG, prefix=""):
+    """The inputs of every msda call of one ``forward_test`` of ``config``
+    (seed 0, the first timed synthetic clip in the 800x1344 bucket), run on
+    the plain path so that no kernel takes part: ``[(name, value, levels,
+    loc, attn)]``, named ``prefix`` + encoder0-5, pose_decoder0-2,
+    joint_decoder0-1 in call order."""
     import torch
     from pavenet_tpu_torch.apis import init_detector
     from pavenet_tpu_torch.apis.inference import host_batch
     from pavenet_tpu_torch.models.attention import deformable
 
-    model = init_detector(str(ROOT / CONFIG), device="cuda", seed=0,
+    model = init_detector(str(ROOT / config), device="cuda", seed=0,
                           impl="torch")
+    T = model.num_frames
     batch = {k: torch.from_numpy(v).cuda()
-             for k, v in host_batch(synthetic_clips()[1], 3,
+             for k, v in host_batch(synthetic_clips(frames=T)[1], T,
                                     (1333, 800)).items()}
     calls, dispatch = [], deformable.ms_deform_attn
 
@@ -394,7 +434,8 @@ def capture_in_model():
     for v, levels, loc, attn in calls:
         kind = ("encoder" if loc.shape[1] == v.shape[1] else
                 "pose_decoder" if loc.shape[4] == 15 else "joint_decoder")
-        captured.append((f"{kind}{seen.get(kind, 0)}", v, levels, loc, attn))
+        captured.append((f"{prefix}{kind}{seen.get(kind, 0)}", v, levels,
+                         loc, attn))
         seen[kind] = seen.get(kind, 0) + 1
     del model
     torch.cuda.empty_cache()
@@ -752,11 +793,11 @@ def check_window(ext):
     return fwd, bwd, per_level
 
 
-def synthetic_clips(seed=0):
+def synthetic_clips(seed=0, frames=3):
     import numpy as np
     rng = np.random.RandomState(seed)
     return [[rng.randint(0, 256, (720, 1280, 3), dtype=np.uint8)
-             for _ in range(3)] for _ in range(CLIPS + 1)]
+             for _ in range(frames)] for _ in range(CLIPS + 1)]
 
 
 def check_detections(out, M=20, K=15):
@@ -822,9 +863,11 @@ def serve(smi, config, per_clip, dtype="f32"):
 
     model = init_detector(str(ROOT / config), device="cuda", seed=0,
                           dtype=dtype)
-    clips = synthetic_clips()
+    T = model.num_frames
+    clips = synthetic_clips(frames=T)
     check_detections(inference_detector(model, clips[0]))   # warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -834,18 +877,19 @@ def serve(smi, config, per_clip, dtype="f32"):
     torch.cuda.synchronize()
     launches = read_launches()
     clip_ms = start.elapsed_time(end) / CLIPS
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     for out in outs:
         check_detections(out)
     check_launches(f"serve {config} {dtype}, {CLIPS} clips", launches,
                    expect(per_clip, dtype), CLIPS)
     batch = {k: torch.from_numpy(v).cuda()
-             for k, v in host_batch(clips[1], 3, (1333, 800)).items()}
+             for k, v in host_batch(clips[1], T, (1333, 800)).items()}
     model_ms = cuda_ms(lambda: model.forward_test(batch), reps=5, warmup=1)
-    print(f"serve {config}: {CLIPS} clips at "
+    print(f"serve {config}: {CLIPS} clips of T={T} at "
           f"{tuple(batch['img'].shape[2:4])}, {dtype}, launches "
           f"{json.dumps(launches)}; {clip_ms:.2f} ms/clip end to end (host "
-          f"pipeline included), {model_ms:.2f} ms/clip forward_test | {smi}",
-          flush=True)
+          f"pipeline included), {model_ms:.2f} ms/clip forward_test; peak "
+          f"memory {peak_gb:.2f} GiB | {smi}", flush=True)
 
     # full-model parity: plain kernels' versions vs the kernels, TF32 off
     tf32(False)
@@ -855,21 +899,60 @@ def serve(smi, config, per_clip, dtype="f32"):
     if dtype == "bf16":
         serve_parity_bf16(config, model, plain, batch)
     else:
-        with torch.inference_mode():
-            got = model.forward_test(batch)
-            want = plain.forward_test(batch)
-        kpt_err = (got["det_kpts"][..., :2]
-                   - want["det_kpts"][..., :2]).abs().max().item()
-        if not kpt_err <= 1e-2 or not torch.equal(got["keep"],
-                                                  want["keep"]):
-            raise AssertionError(
-                f"cuda vs torch model: det_kpts max err {kpt_err} px, keep "
-                f"equal {torch.equal(got['keep'], want['keep'])}")
-        print(f"parity {config}: impl=cuda vs impl=torch on the full model, "
-              f"TF32 off: det_kpts max abs err {kpt_err:.3e} px, keep equal",
-              flush=True)
+        serve_parity_f32(config, model, plain, batch)
     tf32(True)
     return launches, model_ms
+
+
+def serve_parity_f32(config, model, plain, batch):
+    """f32 serving, kernels against the plain path: the detections within
+    1e-2 px and the keep mask equal, with both paths on the plain path's
+    top-k proposals. Where the kernels' own top-k differs from the plain
+    path's, the difference must be a tie to rounding: the encoder's
+    proposal scores of the two paths within 1e-5 of their largest, and at
+    every rank the two selections' plain scores as close (the decoder's
+    query slots carry learned embeddings, so two proposals that swap places
+    change both slots' outputs)."""
+    import torch
+    with torch.inference_mode():
+        want_outs = plain.forward_outputs(batch["img"], batch["img_shape"])
+        own_outs = model.forward_outputs(batch["img"], batch["img_shape"])
+        topk = want_outs["topk_idx"]
+        got = model.forward_test(batch, topk_idx=topk)
+        want = plain.forward_test(batch, topk_idx=topk)
+    same, score_err, rank_gap = topk_tie(own_outs, want_outs)
+    kpt_err = (got["det_kpts"][..., :2]
+               - want["det_kpts"][..., :2]).abs().max().item()
+    keep_equal = torch.equal(got["keep"], want["keep"])
+    if not (kpt_err <= 1e-2 and keep_equal and score_err <= 1e-5
+            and rank_gap <= 1e-5):
+        raise AssertionError(
+            f"cuda vs torch model {config}: det_kpts max err {kpt_err} px, "
+            f"keep equal {keep_equal}; proposal scores {score_err}, own "
+            f"top-k {'equal' if same else 'differs'}, rank score gap "
+            f"{rank_gap}")
+    print(f"parity {config}: impl=cuda vs impl=torch on the full model, "
+          f"TF32 off, on the plain path's top-k: det_kpts max abs err "
+          f"{kpt_err:.3e} px, keep equal; proposal scores within "
+          f"{score_err:.3e}; the kernels' own top-k "
+          f"{'equal' if same else f'a tie (rank score gap {rank_gap:.3e})'}",
+          flush=True)
+
+
+def topk_tie(own_outs, want_outs):
+    """Whether the kernels' own top-k proposals equal the plain path's,
+    the two paths' proposal scores apart (max abs error over the plain
+    path's largest), and at each rank the gap between the plain scores of
+    the two selections (over the same largest): both near 0 when the two
+    selections differ only by a tie to rounding."""
+    import torch
+    own, topk = own_outs["topk_idx"], want_outs["topk_idx"]
+    scores = want_outs["enc_cls_scores"][..., 0].float()
+    rank_gap = ((scores.gather(1, own) - scores.gather(1, topk)).abs().max()
+                / scores.abs().max()).item()
+    return (torch.equal(own, topk),
+            rel_err(own_outs["enc_cls_scores"], want_outs["enc_cls_scores"]),
+            rank_gap)
 
 
 def rel_err(a, b):
@@ -947,7 +1030,8 @@ def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
              and isinstance(model.get_submodule(n.rsplit(".", 1)[0]),
                             BatchNorm)}
     rng = np.random.RandomState(0)
-    batches = [dummy_clip_batch(rng, batch_size, height=hw[0], width=hw[1],
+    batches = [dummy_clip_batch(rng, batch_size, model.num_frames,
+                                height=hw[0], width=hw[1],
                                 max_gt=state.max_gt, train=True)
                for _ in range(TRAIN_STEPS)]
     # with one update per mini-step: the parameters whose first gradient
@@ -1020,7 +1104,8 @@ def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
           + json.dumps({k: round(v.item(), 5) for k, v in losses.items()}),
           flush=True)
     print(f"train {config}: {TRAIN_STEPS} mini-steps at {hw[0]}x{hw[1]}, "
-          f"B={batch_size}, {dtype}, {state.max_gt} GT slots, "
+          f"B={batch_size}, T={model.num_frames}, {dtype}, {state.max_gt} "
+          f"GT slots, "
           f"{state.updates} applied update(s); launches "
           f"{json.dumps(launches)}; "
           f"{statistics.median(step_ms[1:]):.2f} ms/step (median of steps "
@@ -1046,9 +1131,11 @@ def train_parity(config, max_gt=30, dtype="f32", hw=(800, 1344),
     trainable BatchNorm's new running statistics within 1e-5 of their
     scale. ``fixed_topk``: both paths take the plain path's top-k
     proposals (``topk_idx``), so that a near-tie of two proposal scores
-    cannot pick other queries. In bf16 both paths take the plain path's
-    top-k and matches (bf16 scores and costs tie), and the kernels' own
-    matches are reported. Returns the largest loss error."""
+    cannot pick other queries; the kernels' own top-k must then equal the
+    plain path's or differ by a tie (``topk_tie`` within 1e-5). In bf16
+    both paths take the plain path's top-k and matches (bf16 scores and
+    costs tie), and the kernels' own matches are reported. Returns the
+    largest loss error."""
     import numpy as np
     import torch
     from pavenet_tpu_torch.apis.inference import build_model
@@ -1061,17 +1148,25 @@ def train_parity(config, max_gt=30, dtype="f32", hw=(800, 1344),
                                      dtype=dtype).cuda().eval()
                          for impl in ("cuda", "torch"))
     batch = to_device(dummy_clip_batch(
-        np.random.RandomState(1), batch_size, height=hw[0], width=hw[1],
-        max_gt=max_gt, train=True), "cuda")
+        np.random.RandomState(1), batch_size, plain.num_frames,
+        height=hw[0], width=hw[1], max_gt=max_gt, train=True), "cuda")
     bf16 = dtype == "bf16"
-    topk = None
+    topk, tie = None, None
     if fixed_topk or bf16:
         if not plain.norm_eval:
             raise ValueError("a top-k taken ahead would move trainable "
                              "BatchNorm statistics")
         with torch.no_grad():
-            topk = plain.forward_outputs(batch["img"], batch["img_shape"],
-                                         train=True)["topk_idx"]
+            want_outs = plain.forward_outputs(batch["img"],
+                                              batch["img_shape"], train=True)
+            topk = want_outs["topk_idx"]
+            if not bf16:   # the kernels' own top-k: equal, or a tie
+                tie = topk_tie(cuda_model.forward_outputs(
+                    batch["img"], batch["img_shape"], train=True), want_outs)
+                if not (tie[1] <= 1e-5 and tie[2] <= 1e-5):
+                    raise AssertionError(f"cuda vs torch {config}: the "
+                                         f"kernels' own top-k is no tie: "
+                                         f"{tie}")
     results, outs, plain_targets = {}, {}, []
     for name, model in (("torch", plain), ("cuda", cuda_model)):
         with torch.no_grad():
@@ -1119,8 +1214,10 @@ def train_parity(config, max_gt=30, dtype="f32", hw=(800, 1344),
                              f"{rel}, grad norm {norm_c} vs {norm_t}; "
                              f"running statistics {st_err}; outputs {parts}")
     how = ("both on the plain path's top-k and matches" if bf16 else
-           "both on the plain path's top-k" if fixed_topk else
-           "each path its own top-k")
+           "both on the plain path's top-k (the kernels' own "
+           + ("equal" if tie[0] else f"a tie: proposal scores within "
+              f"{tie[1]:.3e}, rank score gap {tie[2]:.3e}") + ")"
+           if fixed_topk else "each path its own top-k")
     print(f"train parity {config} {dtype}: impl=cuda vs impl=torch, one "
           f"mini-step at {hw[0]}x{hw[1]}, B={batch_size}, dropout 0, TF32 "
           f"off, {how}: matched queries {'equal' if same else 'differ'} in "
@@ -1230,19 +1327,110 @@ def e2e_options():
                            ("img_prefix", ""))]
 
 
+def tta_flags(flip_test, aug_scales):
+    """The test CLI's flags for one of ``TTA_RUNS``."""
+    return ((["--flip-test"] if flip_test else [])
+            + (["--aug-scales"] + [str(r) for r in aug_scales]
+               if aug_scales else []))
+
+
+def tta_passes(flip_test, aug_scales):
+    """Forward passes per clip (each 11 msda launches) under the options."""
+    return (2 if flip_test else 1) * max(1, len(aug_scales or ()))
+
+
+def plain_topk_parity(models, dataset, img_norm, flip_test=False,
+                      aug_scales=None):
+    """``models["cuda"]`` against ``models["torch"]`` clip by clip, each
+    pass that ``run_inference`` makes with the options (one, or one per
+    scale and flip) on the plain path's top-k for the clip that the pass
+    runs (the flipped one on a flip pass): the pass's keypoints within
+    1e-2 px and scores within 1e-5; then the clip's detections
+    (``forward_test``'s OKS-NMS, or the passes merged by
+    ``merge_aug_detections``, the merge ``forward_test_flip`` makes):
+    keep equal, the kept entries' keypoints and scores within the same
+    limits. The decoder's query slots carry learned embeddings, so two
+    proposal scores tied to float rounding that swap places in the top-k
+    change every output of the two slots. Returns the largest gaps and
+    how many passes had the same own top-k."""
+    import torch
+    from pavenet_tpu_torch.apis.test import FEED_KEYS, _rescale_batch
+    from pavenet_tpu_torch.apis.train import model_feed
+    from pavenet_tpu_torch.datasets import ClipLoader
+
+    tta = bool(flip_test or aug_scales)
+
+    def one_pass(model, feed, flip, topk):
+        if tta:
+            return model.forward_test_aug(feed, flip=flip, topk_idx=topk)
+        out = model.forward_test(feed, topk_idx=topk)
+        return dict(out, scores=out["det_bboxes"][..., 4])
+
+    def gaps(got, want, sel=Ellipsis):
+        return ((got["det_kpts"][..., :2] - want["det_kpts"][..., :2])[sel]
+                .abs().max().item(),
+                (got["scores"] - want["scores"])[sel].abs().max().item())
+
+    device = next(models["torch"].parameters()).device
+    kpt_err = score_err = 0.0
+    own_topk = n_passes = 0
+    for batch in ClipLoader(dataset, batch_size=1, shuffle=False,
+                            drop_last=False):
+        host = {k: batch[k] for k in FEED_KEYS}
+        passes = {impl: [] for impl in models}
+        with torch.inference_mode():
+            for ratio in aug_scales or (1.0,):
+                feed = model_feed(_rescale_batch(host, float(ratio)), device,
+                                  img_norm)
+                for flip in ((False, True) if flip_test else (False,)):
+                    seen = models["torch"]._flip_images(feed) if flip else feed
+                    topk = {impl: m.forward_outputs(
+                        seen["img"], seen["img_shape"])["topk_idx"]
+                        for impl, m in models.items()}
+                    own_topk += torch.equal(topk["cuda"], topk["torch"])
+                    n_passes += 1
+                    for impl, m in models.items():
+                        passes[impl].append(one_pass(m, feed, flip,
+                                                     topk["torch"]))
+                    kpt, score = gaps(passes["cuda"][-1],
+                                      passes["torch"][-1])
+                    kpt_err, score_err = (max(kpt_err, kpt),
+                                          max(score_err, score))
+            got, want = ({**out, "scores": out["det_bboxes"][..., 4]}
+                         for out in (models[impl].merge_aug_detections(
+                             passes[impl]) if tta else passes[impl][0]
+                             for impl in ("cuda", "torch")))
+        if not torch.equal(got["keep"], want["keep"]):
+            raise AssertionError(f"cuda vs torch, image {batch['image_id']}"
+                                 f": keep {got['keep']} vs {want['keep']}")
+        if got["keep"].any():
+            kpt, score = gaps(got, want, got["keep"])
+            kpt_err, score_err = max(kpt_err, kpt), max(score_err, score)
+        if not (kpt_err <= 1e-2 and score_err <= 1e-5):
+            raise AssertionError(
+                f"cuda vs torch, image {batch['image_id']}, flip_test "
+                f"{flip_test}, aug_scales {aug_scales}: keypoints {kpt_err} "
+                f"px (limit 1e-2), scores {score_err} (limit 1e-5)")
+    return dict(kpt_err=kpt_err, score_err=score_err, own_topk=own_topk,
+                passes=n_passes)
+
+
 def dataset_to_ap(smi):
     """Phase 14: scenes, the train CLI, its resume, the test CLI in f32 and
-    bf16, cuda against torch on the checkpoint, and the prep on the card.
-    Returns the runs' launches."""
+    bf16, cuda against torch on the checkpoint, and the prep on the card;
+    phase 18: the test CLI with flip and multi-scale test-time
+    augmentation (cuda against torch), the distillation CLI from the
+    checkpoint and the test CLI on its student. Returns the runs'
+    launches."""
     import shutil
     import numpy as np
     import torch
     from pavenet_tpu_torch.apis.inference import build_model
     from pavenet_tpu_torch.apis.prep import device_prep
     from pavenet_tpu_torch.apis.test import evaluate_dataset, run_inference
-    from pavenet_tpu_torch.apis.train import model_feed
     from pavenet_tpu_torch.datasets import ClipLoader, synthetic
     from pavenet_tpu_torch.datasets.pipelines import build_test_pipeline
+    from pavenet_tpu_torch.tools import distill as distill_cli
     from pavenet_tpu_torch.tools import test as test_cli
     from pavenet_tpu_torch.tools import train as train_cli
     from pavenet_tpu_torch.utils.checkpoint import restore_variables
@@ -1306,11 +1494,31 @@ def dataset_to_ap(smi):
               f"first clip {res['first_clip_s']:.2f} s); metrics "
               f"{json.dumps(res['metrics'])} | {smi}", flush=True)
 
-    # cuda against torch on the checkpoint, TF32 off: the eval loop end to
-    # end, each path on its own top-k (Mean AP), then clip by clip on the
-    # plain path's top-k: the decoder's query slots carry learned
-    # embeddings, so two proposal scores tied to float rounding that swap
-    # places in the top-k change every output of the two slots
+    # 18. test-time augmentation: 2 passes per clip (flip), 4 (two scales,
+    # each plain and flipped), each pass 11 msda launches
+    for tta, flip_test, aug_scales in TTA_RUNS:
+        flags = tta_flags(flip_test, aug_scales)
+        reset_launches()
+        res = test_cli.main([config, ckpt, "--dtype", "f32"] + flags
+                            + opts)
+        name = f"e2e_test_{tta}"
+        runs[name] = read_launches()
+        check_launches(f"{name}, {res['clips']} clips", runs[name],
+                       {"msda_fwd": tta_passes(flip_test, aug_scales)
+                        * CALLS_PER_CLIP}, res["clips"])
+        eval_ms[tta] = res["ms_per_clip"]
+        print(f"{name}: tools.test.main {' '.join(flags)} on "
+              f"{os.path.basename(ckpt)}: {res['clips']} clips, "
+              f"{res['detections']} detections, launches "
+              f"{json.dumps(runs[name])}; eval loop {res['ms_per_clip']:.2f}"
+              f" ms/clip (host pipeline included; first clip "
+              f"{res['first_clip_s']:.2f} s); metrics "
+              f"{json.dumps(res['metrics'])} | {smi}", flush=True)
+
+    # cuda against torch on the checkpoint, TF32 off: clip by clip on the
+    # plain path's top-k, pass by pass (plain_topk_parity); then, as an
+    # extra check, the eval loop end to end, each path on its own top-k
+    # (Mean AP)
     tf32(False)
     cfg = train_cli.load_config(config, opts[1:])
     kwargs, img_norm = train_cli.eval_pipeline_kwargs(cfg)
@@ -1323,31 +1531,37 @@ def dataset_to_ap(smi):
         metrics[impl] = evaluate_dataset(dataset, run_inference(
             models[impl], ClipLoader(dataset, batch_size=1, shuffle=False,
                                      drop_last=False), img_norm=img_norm))
-    kpt_err, own_topk = 0.0, 0
-    for batch in ClipLoader(dataset, batch_size=1, shuffle=False,
-                            drop_last=False):
-        feed = model_feed(batch, "cuda", img_norm)
-        with torch.inference_mode():
-            topk = models["torch"].forward_outputs(
-                feed["img"], feed["img_shape"])["topk_idx"]
-            own_topk += torch.equal(topk, models["cuda"].forward_outputs(
-                feed["img"], feed["img_shape"])["topk_idx"])
-            got, want = (models[impl].forward_test(feed, topk_idx=topk)
-                         for impl in ("cuda", "torch"))
-        if not torch.equal(got["keep"], want["keep"]):
-            raise AssertionError(f"cuda vs torch, image {batch['image_id']}"
-                                 f": keep {got['keep']} vs {want['keep']}")
-        gap = got["det_kpts"][..., :2] - want["det_kpts"][..., :2]
-        kpt_err = max(kpt_err, gap.abs().max().item())
+    par = plain_topk_parity(models, dataset, img_norm)
     ap = {impl: m["posetrack/Mean"] for impl, m in metrics.items()}
-    if not (kpt_err <= 1e-2 and abs(ap["cuda"] - ap["torch"]) <= 0.1):
-        raise AssertionError(f"cuda vs torch on {ckpt}: keypoints {kpt_err} "
-                             f"px, Mean AP {ap}")
+    if not abs(ap["cuda"] - ap["torch"]) <= 0.1:
+        raise AssertionError(f"cuda vs torch on {ckpt}: Mean AP {ap}")
     print(f"e2e parity: impl=cuda vs impl=torch on {os.path.basename(ckpt)},"
-          f" TF32 off: run_inference posetrack/Mean {ap['cuda']:.4f} vs "
-          f"{ap['torch']:.4f} (limit 0.1), {own_topk} of {len(dataset)} "
-          f"clips with the same top-k; on the plain path's top-k, keep equal"
-          f" and keypoints within {kpt_err:.3e} px (limit 1e-2)", flush=True)
+          f" TF32 off: on the plain path's top-k, keep equal, keypoints "
+          f"within {par['kpt_err']:.3e} px (limit 1e-2), scores within "
+          f"{par['score_err']:.3e} (limit 1e-5), {par['own_topk']} of "
+          f"{par['passes']} passes with the same own top-k; run_inference "
+          f"posetrack/Mean {ap['cuda']:.4f} vs {ap['torch']:.4f} (limit "
+          f"0.1)", flush=True)
+    for tta, flip_test, aug_scales in TTA_RUNS:
+        par = plain_topk_parity(models, dataset, img_norm, flip_test,
+                                aug_scales)
+        ap = {impl: evaluate_dataset(dataset, run_inference(
+            models[impl], ClipLoader(dataset, batch_size=1, shuffle=False,
+                                     drop_last=False), img_norm=img_norm,
+            flip_test=flip_test, aug_scales=aug_scales))["posetrack/Mean"]
+            for impl in ("cuda", "torch")}
+        flags = " ".join(tta_flags(flip_test, aug_scales))
+        if not abs(ap["cuda"] - ap["torch"]) <= 0.1:
+            raise AssertionError(f"cuda vs torch, {flags}: Mean AP {ap}")
+        print(f"e2e parity {flags}: on the plain path's top-k, "
+              f"{par['passes']} passes ({par['own_topk']} with the same own "
+              f"top-k): keypoints within {par['kpt_err']:.3e} px (limit "
+              f"1e-2), scores within {par['score_err']:.3e} (limit 1e-5); "
+              f"the merged detections keep equal, within the same limits; "
+              f"run_inference posetrack/Mean {ap['cuda']:.4f} vs "
+              f"{ap['torch']:.4f} (limit 0.1, each path its own top-k)",
+              flush=True)
+    del models
     tf32(True)
 
     # the uint8 feed normalised on the card against the host chain
@@ -1364,6 +1578,71 @@ def dataset_to_ap(smi):
           f"the host Normalize -> PadToBucket chain: max abs err {err:.3e} "
           f"(limit 1e-5); eval ms/clip f32 {eval_ms['f32']:.2f}, bf16 "
           f"{eval_ms['bf16']:.2f} | {smi}", flush=True)
+
+    # 18. the distillation CLI: the windowed student of the same recipe
+    # from the checkpoint, then the test CLI on the student
+    student_cfg = str(ROOT / SYNTHETIC_WINDOWED_CONFIG)
+    reset_launches()
+    res = distill_cli.main([student_cfg, ckpt, "--work-dir",
+                            str(CHIP_WORK / "distill"), "--steps",
+                            str(E2E_DISTILL_STEPS), "--log-interval", "1",
+                            "--dtype", "f32"] + opts)
+    runs["e2e_distill_f32"] = read_launches()
+    check_launches(f"e2e_distill_f32, {res['steps']} steps",
+                   runs["e2e_distill_f32"],
+                   {"msda_fwd": 6, "window_attn_fwd": WINDOW_CALLS,
+                    "window_attn_bwd": WINDOW_CALLS}, res["steps"])
+    teacher_sd = restore_variables(ckpt)
+    student_sd = restore_variables(res["checkpoint"])
+    init = build_model(train_cli.load_config(student_cfg, opts[1:]),
+                       seed=0).state_dict()
+    enc = [k for k in student_sd if k.startswith("head.encoder_layer")]
+    copied_moved = [k for k in student_sd if k not in enc
+                    and not torch.equal(student_sd[k], teacher_sd[k])]
+    enc_stuck = [k for k in enc if k.endswith("weight")
+                 and torch.equal(student_sd[k], init[k])]
+    if (res["steps"] != E2E_DISTILL_STEPS or copied_moved or enc_stuck
+            or not np.isfinite(res["distill_mse"])):
+        raise AssertionError(f"distill CLI: {res}; entries copied from the "
+                             f"teacher changed: {copied_moved}; encoder "
+                             f"weights unchanged: {enc_stuck}")
+    print(f"e2e_distill_f32: tools.distill.main from "
+          f"{os.path.basename(ckpt)}: {res['steps']} steps, launches "
+          f"{json.dumps(runs['e2e_distill_f32'])}; {res['step_ms']:.2f} ms "
+          f"per step (median, host clock, loader wait included); "
+          f"distill_mse {res['distill_mse']:.5g}; {len(student_sd) - len(enc)}"
+          f" teacher entries bit-identical, every encoder weight changed "
+          f"| {smi}", flush=True)
+    reset_launches()
+    out = test_cli.main([student_cfg, res["checkpoint"], "--dtype", "f32"]
+                        + opts)
+    runs["e2e_test_student_f32"] = read_launches()
+    check_launches(f"e2e_test_student_f32, {out['clips']} clips",
+                   runs["e2e_test_student_f32"],
+                   {"msda_fwd": WINDOWED_MSDA_CALLS,
+                    "window_attn_fwd": WINDOW_CALLS}, out["clips"])
+    print(f"e2e_test_student_f32: tools.test.main on the student: "
+          f"{out['clips']} clips, {out['detections']} detections, launches "
+          f"{json.dumps(runs['e2e_test_student_f32'])}; eval loop "
+          f"{out['ms_per_clip']:.2f} ms/clip; metrics "
+          f"{json.dumps(out['metrics'])} | {smi}", flush=True)
+    # the student cuda against torch, TF32 off, as the checkpoint above
+    tf32(False)
+    cfg = train_cli.load_config(student_cfg, opts[1:])
+    kwargs, img_norm = train_cli.eval_pipeline_kwargs(cfg)
+    models = {}
+    for impl in ("cuda", "torch"):
+        models[impl] = build_model(cfg, impl=impl).cuda().eval()
+        models[impl].load_state_dict(student_sd)
+    par = plain_topk_parity(models, train_cli.build_dataset(
+        cfg, "test", build_test_pipeline(**kwargs)), img_norm)
+    del models
+    tf32(True)
+    print(f"student parity: impl=cuda vs impl=torch, TF32 off: on the plain "
+          f"path's top-k, keep equal, keypoints within {par['kpt_err']:.3e} "
+          f"px (limit 1e-2), scores within {par['score_err']:.3e} (limit "
+          f"1e-5), {par['own_topk']} of {par['passes']} clips with the same "
+          f"own top-k", flush=True)
     return runs
 
 
@@ -1424,8 +1703,10 @@ def main(argv=None):
             if "Used" in line or "spill" in line or "Compiling" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    # 3. the msda calls of one flagship clip, on the plain path
+    # 3. the msda calls of one flagship clip, on the plain path, and the
+    # encoder call of one T=5 clip
     captured = capture_in_model()
+    captured.append(capture_in_model(FRAMES5_CONFIG, "frames5_")[0])
     print("captured: " + ", ".join(
         f"{n} {tuple(loc.shape)}" for n, _, _, loc, _ in captured),
         flush=True)
@@ -1477,11 +1758,34 @@ def main(argv=None):
     runs["distill_f32"] = distill(smi)
     torch.cuda.empty_cache()
 
-    # 14. dataset to AP through the CLIs
+    # 14, 18. dataset to AP through the CLIs, with test-time augmentation
+    # and the distillation CLI
     runs.update(dataset_to_ap(smi))
+    torch.cuda.empty_cache()
+
+    # 15-16. Swin-L PAVE-Net: serve (f32, bf16), train (f32)
+    for dtype in ("f32", "bf16"):
+        runs[f"swin_serve_{dtype}"], serve_ms[("swin", dtype)] = serve(
+            smi, SWIN_CONFIG, {"msda_fwd": CALLS_PER_CLIP}, dtype)
+        torch.cuda.empty_cache()
+    runs["swin_train_f32"], _ = train(smi, SWIN_CONFIG, flagship)
+    torch.cuda.empty_cache()
+    train_parity(SWIN_CONFIG)
+    torch.cuda.empty_cache()
+
+    # 17. T=5: serve and train, f32
+    runs["frames5_serve_f32"], serve_ms[("frames5", "f32")] = serve(
+        smi, FRAMES5_CONFIG, {"msda_fwd": CALLS_PER_CLIP})
+    runs["frames5_train_f32"], _ = train(smi, FRAMES5_CONFIG, flagship)
+    # seed 0's T=5 proposals hold a tie to rounding (serve parity above):
+    # both paths on the plain path's top-k, the tie checked
+    train_parity(FRAMES5_CONFIG, fixed_topk=True)
+    torch.cuda.empty_cache()
     print("serve forward_test ms/clip, f32 / bf16: " + ", ".join(
-        f"{m} {serve_ms[(m, 'f32')]:.2f} / {serve_ms[(m, 'bf16')]:.2f}"
-        for m in ("flagship", "windowed")) + f" | {smi}", flush=True)
+        f"{m} {serve_ms[(m, 'f32')]:.2f} / "
+        + (f"{serve_ms[(m, 'bf16')]:.2f}" if (m, "bf16") in serve_ms
+           else "-") for m in ("flagship", "windowed", "swin", "frames5"))
+        + f" | {smi}", flush=True)
 
     def by_run(name):
         return {run: {"launches": counts[name],
@@ -1490,18 +1794,26 @@ def main(argv=None):
 
     merged, = [r for r in probes if r["inputs"] == "in_model"
                and r["dtype"] == "float32"]
+
+    def frames5(records):
+        """The T=5 encoder call's numbers, in-model, f32."""
+        rec, = [r for r in records if r["dtype"] == "float32"
+                and r["case"] == "frames5_encoder0"]
+        return {f"{k}_frames5_in_model": rec[k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
     print(json.dumps({"kernels": [
         kernel_record("msda_fwd", fwd,
                       runs["flagship_train_f32"]["msda_fwd"],
                       "pavenet_tpu/ops/pallas/msda_cs.py:398, "
                       "pavenet_tpu/ops/pallas/msda.py:334",
                       launches_by_run=by_run("msda_fwd"),
-                      merged_probe_ms_in_model=merged["fwd_merged_ms"]),
+                      merged_probe_ms_in_model=merged["fwd_merged_ms"],
+                      **frames5(fwd)),
         kernel_record("msda_bwd", bwd,
                       runs["flagship_train_f32"]["msda_bwd"],
                       "pavenet_tpu/ops/pallas/msda_cs.py:662, "
                       "pavenet_tpu/ops/pallas/msda.py:490",
-                      launches_by_run=by_run("msda_bwd")),
+                      launches_by_run=by_run("msda_bwd"), **frames5(bwd)),
         kernel_record("window_attn_fwd", win_fwd,
                       runs["windowed_train_f32"]["window_attn_fwd"],
                       "pavenet_tpu/ops/pallas/window_attn.py:173",

@@ -15,7 +15,11 @@ The update follows the JAX package's optax chain:
 
 Models built in bf16 (``dtype``) take part unchanged: the loss casts both
 memories to float32, and a student built from a config takes the
-teacher's activation dtype.
+teacher's activation dtype. A batch may be a ``dummy_clip_batch`` or a
+``ClipLoader`` batch (a uint8 image is normalised on the card with the
+state's ``img_norm``); ``DistillState.state_dict`` is what
+``utils/checkpoint.py`` saves, so the student's checkpoint serves
+``tools.test``.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import torch
 
 from ..models.detectors.videopose import VideoPoseDetector
 from .inference import build_model
-from .train import to_device
+from .prep import IMG_NORM_MEAN, IMG_NORM_STD
+from .train import model_feed
 
 
 def _is_encoder_key(key: str) -> bool:
@@ -86,22 +91,31 @@ def memory_distill_loss(student_memory: torch.Tensor,
 
 @dataclasses.dataclass
 class DistillState:
-    """Student, teacher, the student's encoder-only optimizer and clip."""
+    """Student, teacher, the student's encoder-only optimizer and clip, and
+    the (mean, std) that normalises a uint8 feed."""
     student: VideoPoseDetector
     teacher: VideoPoseDetector
     optimizer: torch.optim.AdamW
     grad_clip: float
     step: int = 0
+    img_norm: tuple = (IMG_NORM_MEAN, IMG_NORM_STD)
+
+    def state_dict(self) -> dict:
+        """The student's weights, under ``model`` as in a ``TrainState``'s
+        (what ``utils/checkpoint.py::restore_variables`` reads)."""
+        return dict(model=self.student.state_dict())
 
 
 def create_distill_state(student: Union[str, Mapping, VideoPoseDetector],
                          teacher: VideoPoseDetector, seed: int = 0,
                          learning_rate: float = 1e-4,
-                         grad_clip: float = 0.1) -> DistillState:
+                         grad_clip: float = 0.1,
+                         img_norm=(IMG_NORM_MEAN, IMG_NORM_STD)
+                         ) -> DistillState:
     """The student (a model, or a config built with a random init from
     ``seed`` in the teacher's activation dtype) with every shared entry
     copied from ``teacher``, on the teacher's device, and its encoder-only
-    optimizer."""
+    optimizer; ``img_norm`` normalises a uint8 feed."""
     if not isinstance(student, VideoPoseDetector):
         student = build_model(student, seed, dtype=teacher.dtype)
     student.load_state_dict(student_from_teacher(student.state_dict(),
@@ -111,7 +125,7 @@ def create_distill_state(student: Union[str, Mapping, VideoPoseDetector],
     return DistillState(
         student=student, teacher=teacher,
         optimizer=encoder_only_optimizer(student, learning_rate),
-        grad_clip=grad_clip)
+        grad_clip=grad_clip, img_norm=tuple(img_norm))
 
 
 def distill_step(state: DistillState,
@@ -122,7 +136,8 @@ def distill_step(state: DistillState,
     Returns the detached ``distill_mse``, ``distill_rel`` and
     ``grad_norm`` (the global norm the clip reads)."""
     student, teacher = state.student.eval(), state.teacher.eval()
-    batch = to_device(batch, next(student.parameters()).device)
+    batch = model_feed(batch, next(student.parameters()).device,
+                       state.img_norm)
     with torch.no_grad():
         target = teacher.forward_memory(batch["img"], batch["img_shape"])
     memory = student.forward_memory(batch["img"], batch["img_shape"])["memory"]

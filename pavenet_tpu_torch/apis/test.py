@@ -2,12 +2,15 @@
 dataset's loader, detections as COCO-style dicts, and the keypoint
 evaluators.
 
-``run_inference`` is the JAX package's single-scale path without flip:
-each batch's image (uint8 or float) goes to the card, is normalised there
-(``apis/prep.py``), runs ``forward_test``, and the detections the NMS keeps
-become dicts. Left out: the packed fetch and its double buffering (a
-remote-device workaround), flip and multi-scale test-time augmentation,
-the detection and instance-segmentation branch, and MOTA.
+``run_inference``: each batch's image (uint8 or float) goes to the card,
+is normalised there (``apis/prep.py``), runs ``forward_test`` (or, with
+``flip_test``, ``forward_test_flip``; with ``aug_scales``, one
+``forward_test_aug`` pass per scale and flip, each scale resized on the
+host by ``_rescale_batch`` before the card normalises it, merged by
+``merge_aug_detections``), and the detections the NMS keeps become dicts.
+``evaluate_dataset`` adds MOTA where every detection has a ``track_id``.
+Left out: the packed fetch and its double buffering (a remote-device
+workaround), and the detection and instance-segmentation branch.
 """
 from __future__ import annotations
 
@@ -18,22 +21,78 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..datasets.pipelines.transforms import DEFAULT_BUCKETS
 from .prep import IMG_NORM_MEAN, IMG_NORM_STD
 from .train import model_feed
+
+FEED_KEYS = ("img", "img_shape", "scale_factor")
+
+
+def _rescale_batch(batch, ratio: float) -> dict:
+    """Multi-scale test-time augmentation on the host: each sample's valid
+    region resized by ``ratio`` (cv2 ``INTER_LINEAR``, in the batch's own
+    dtype, uint8 for the uint8 feed) into the smallest bucket of
+    ``DEFAULT_BUCKETS`` that holds every resized sample; ``img_shape`` and
+    ``scale_factor`` scaled with it."""
+    import cv2
+    if ratio == 1.0:
+        return batch
+    img = np.asarray(batch["img"])                  # (B, T, H, W, 3)
+    shapes = np.asarray(batch["img_shape"])
+    new_shapes = np.maximum((shapes * ratio).round().astype(np.int32), 1)
+    nh_max, nw_max = new_shapes.max(0)
+    for bh, bw in sorted(DEFAULT_BUCKETS, key=lambda b: b[0] * b[1]):
+        if bh >= nh_max and bw >= nw_max:
+            break
+    else:
+        raise ValueError(f"scaled image {nh_max}x{nw_max} exceeds buckets")
+    out = np.zeros(img.shape[:2] + (bh, bw, 3), img.dtype)
+    for b in range(img.shape[0]):
+        ih, iw = shapes[b]
+        nh, nw = new_shapes[b]
+        for t in range(img.shape[1]):
+            out[b, t, :nh, :nw] = cv2.resize(
+                img[b, t, :ih, :iw], (int(nw), int(nh)),
+                interpolation=cv2.INTER_LINEAR)
+    return dict(batch, img=out, img_shape=new_shapes,
+                scale_factor=np.asarray(batch["scale_factor"]) * ratio)
+
+
+def _infer(model, feed, device, img_norm, flip_test, aug_scales):
+    """One batch's padded detections: ``forward_test``,
+    ``forward_test_flip``, or the multi-scale passes merged."""
+    if aug_scales:
+        flips = (False, True) if flip_test else (False,)
+        outs = []
+        for r in aug_scales:
+            fb = model_feed(_rescale_batch(feed, float(r)), device, img_norm)
+            outs.extend(model.forward_test_aug(fb, flip=f) for f in flips)
+        return model.merge_aug_detections(outs)
+    feed = model_feed(feed, device, img_norm)
+    return (model.forward_test_flip(feed) if flip_test
+            else model.forward_test(feed))
 
 
 def run_inference(model, loader, score_thr: float = 0.0, logger=None,
                   img_norm=(IMG_NORM_MEAN, IMG_NORM_STD),
-                  timing: Optional[dict] = None) -> List[dict]:
+                  timing: Optional[dict] = None, flip_test: bool = False,
+                  aug_scales=None) -> List[dict]:
     """COCO-style keypoint detections (image_id, category_id, keypoints
     with the per-joint score in the v slot, score) of ``model`` over
     ``loader``, in eval mode; repeat-padded rows (``_row_valid`` False) and
     scores under ``score_thr`` are left out.
 
+    ``flip_test`` merges each clip's detections with its flip's by box NMS;
+    ``aug_scales`` (ratios) runs one pass per scale (and per flip with
+    ``flip_test``) and merges them. A single ratio of 1.0 is no
+    multi-scale test.
+
     ``timing``, when given, receives ``clips``, ``first_clip_s`` (the first
     batch, warm-up included) and ``ms_per_clip`` (the rest, host pipeline
     included: loader wait, copy, model and host decoding)."""
     device = next(model.parameters()).device
+    if aug_scales and len(aug_scales) == 1 and float(aug_scales[0]) == 1.0:
+        aug_scales = None
     was_training = model.training
     model.eval()
     detections: List[dict] = []
@@ -42,10 +101,8 @@ def run_inference(model, loader, score_thr: float = 0.0, logger=None,
     try:
         for batch in loader:
             with torch.inference_mode():
-                out = model.forward_test(model_feed(
-                    {k: batch[k] for k in ("img", "img_shape",
-                                           "scale_factor")},
-                    device, img_norm))
+                out = _infer(model, {k: batch[k] for k in FEED_KEYS},
+                             device, img_norm, flip_test, aug_scales)
             out = {k: v.float().cpu().numpy() if v.is_floating_point()
                    else v.cpu().numpy() for k, v in out.items()}
             n = len(batch["img"])
@@ -98,8 +155,10 @@ def gather_detections(detections: List[dict]) -> List[dict]:
 def evaluate_dataset(dataset, detections: List[dict],
                      max_dets: int = 30) -> "OrderedDict":
     """Keypoint metrics of ``detections`` on ``dataset``: COCO OKS AP as
-    ``coco/...``, and for PoseTrack the per-joint AP as ``posetrack/...``.
-    (The port has no dataset of the CrowdPose protocol yet.)"""
+    ``coco/...``; for PoseTrack the per-joint AP as ``posetrack/...``, and
+    MOTA, MOTP, precision and recall beside it when every detection
+    carries a ``track_id`` (from a tracker outside the model). (The port
+    has no dataset of the CrowdPose protocol yet.)"""
     from ..core.eval.coco_keypoint_eval import COCOKeypointEval
     from ..core.eval.posetrack_eval import (evaluate_posetrack_ap,
                                             frames_from_coco)
@@ -113,9 +172,18 @@ def evaluate_dataset(dataset, detections: List[dict],
             max_dets=max_dets).evaluate()
         results.update({f"coco/{k}": v for k, v in coco.items()})
     if getattr(dataset, "EVAL_PROTOCOL", "coco") == "posetrack":
-        pt = evaluate_posetrack_ap(frames_from_coco(
-            dataset.coco, detections, max_dets=max_dets))
+        frames = frames_from_coco(dataset.coco, detections,
+                                  max_dets=max_dets)
+        pt = evaluate_posetrack_ap(frames)
         for k, v in pt.items():
             if k != "per_joint":
                 results[f"posetrack/{k}"] = v
+        if detections and all("track_id" in d for d in detections):
+            from ..core.eval.posetrack_track_eval import (
+                evaluate_posetrack_mota)
+            mot = evaluate_posetrack_mota(
+                frames, [fr["seq_id"] for fr in frames])
+            for k, v in mot.items():
+                if k != "mota_per_joint":
+                    results[f"posetrack/{k}"] = v
     return results

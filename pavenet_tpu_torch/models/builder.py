@@ -1,6 +1,7 @@
 """Config dict -> detector (as ``pavenet_tpu/models/builder.py``, the
 VideoPoseV1 and VideoPoseV2 paths with RLE losses, a ResNet backbone with
-frozen or trainable BatchNorm, and the activation dtype)."""
+frozen or trainable BatchNorm or a Swin Transformer, and the activation
+dtype)."""
 from __future__ import annotations
 
 import torch
@@ -25,6 +26,29 @@ def _type_name(cfg, default=None):
     return split_scope_key(cfg.get("type", default))[1]
 
 
+def _backbone_kwargs(backbone: dict) -> dict:
+    """A reference backbone config as detector arguments (ResNet, Swin
+    Transformer; HRNet is not ported yet)."""
+    btype = _type_name(backbone, "ResNet")
+    out_indices = tuple(backbone.get("out_indices", (1, 2, 3)))
+    if btype == "ResNet":
+        return dict(backbone_type="resnet",
+                    backbone_depth=backbone.get("depth", 50),
+                    backbone_out_indices=out_indices,
+                    norm_eval=backbone.get("norm_eval", True),
+                    frozen_stages=backbone.get("frozen_stages", 1))
+    if btype == "SwinTransformer":
+        return dict(backbone_type="swin", backbone_out_indices=out_indices,
+                    swin_embed_dims=backbone.get("embed_dims", 192),
+                    swin_depths=tuple(backbone.get("depths", (2, 2, 18, 2))),
+                    swin_num_heads=tuple(
+                        backbone.get("num_heads", (6, 12, 24, 48))),
+                    swin_window_size=backbone.get("window_size", 7))
+    if btype == "HRNet":
+        raise KeyError("backbone 'HRNet' is not ported yet")
+    raise KeyError(f"unsupported backbone {btype!r}")
+
+
 def _loss_weight(head, key, default):
     return head.get(key, {}).get("loss_weight", default)
 
@@ -38,15 +62,14 @@ def build_detector(cfg: dict, impl: str = "auto",
     VideoPoseV2 trains with backbone and neck frozen. Raises on what the
     port does not have yet: another detector, backbone or head, another
     encoder mode, a keypoint loss other than RLE, and OKS or heatmap losses
-    with a weight above 0.
+    with a weight above 0. The neck takes its input widths from the
+    backbone.
     """
     det_type = _type_name(cfg)
     if det_type not in ("VideoPoseV1", "VideoPoseV2"):
         raise KeyError(f"unsupported detector type {det_type!r} (the port "
                        "has VideoPoseV1 and VideoPoseV2)")
-    backbone = cfg.get("backbone", {})
-    if _type_name(backbone, "ResNet") != "ResNet":
-        raise KeyError(f"unsupported backbone {backbone.get('type')!r}")
+    backbone = _backbone_kwargs(cfg.get("backbone", {}))
     head = cfg.get("bbox_head", {})
     head_type = _type_name(head, "VideoPoseHeadMulFrames")
     if head_type != "VideoPoseHeadMulFrames":
@@ -77,10 +100,7 @@ def build_detector(cfg: dict, impl: str = "auto",
         num_keypoints=head.get("num_keypoints", 15),
         num_classes=head.get("num_classes", 1),
         num_query=head.get("num_query", 300),
-        backbone_depth=backbone.get("depth", 50),
-        backbone_out_indices=tuple(backbone.get("out_indices", (1, 2, 3))),
-        frozen_stages=backbone.get("frozen_stages", 1),
-        norm_eval=backbone.get("norm_eval", True),
+        **backbone,
         freeze_backbone_neck=det_type == "VideoPoseV2",
         embed_dims=enc_layers.get("attn_cfgs", {}).get("embed_dims", 256),
         feedforward_channels=enc_layers.get("feedforward_channels", 1024),

@@ -1,7 +1,9 @@
 """PAVE-Net detector (as ``pavenet_tpu/models/detectors/videopose.py``):
-backbone + neck + video pose head, with the train step's losses
-(``forward_train``: Hungarian matching, focal and RLE losses) and the test
-path's Poseur rescoring and OKS-NMS (``forward_test``).
+backbone (ResNet or Swin) + neck + video pose head, with the train step's
+losses (``forward_train``: Hungarian matching, focal and RLE losses), the
+test path's Poseur rescoring and OKS-NMS (``forward_test``), and flip and
+multi-scale test-time augmentation (``forward_test_flip``,
+``forward_test_aug``, ``merge_aug_detections``: box NMS over the union).
 
 Trainable BatchNorm (``norm_eval=False``) is in train mode in
 ``forward_train`` and in eval mode elsewhere, whatever ``nn.Module.training``
@@ -27,12 +29,24 @@ import torch
 import torch.nn as nn
 
 from ..backbones.resnet import ResNet
+from ..backbones.swin import SwinTransformer
 from ..necks.channel_mapper import ChannelMapper
 from ..dense_heads.videopose_head import VideoPoseHead
 from ..losses import OKS_SIGMAS, rle_loss, sigmoid_focal_loss
 from ...core.assigner import (PoseTargets, build_pose_targets,
                               hungarian_assign, pose_match_cost)
-from ...ops.nms import oks_nms_keep
+from ...ops.nms import box_nms_keep, oks_nms_keep
+
+# left/right keypoint pairs by keypoint count (COCO, PoseTrack, CrowdPose)
+FLIP_PAIRS_BY_K = {
+    17: ((1, 2), (3, 4), (5, 6), (7, 8), (9, 10), (11, 12), (13, 14),
+         (15, 16)),
+    15: ((3, 4), (5, 6), (7, 8), (9, 10), (11, 12), (13, 14)),
+    14: ((0, 1), (2, 3), (4, 5), (6, 7), (8, 9), (10, 11)),
+}
+# the test-time augmentation merge: box NMS at this IoU, every score kept
+# (the reference's ``aug_test`` with ``multiclass_nms``)
+TTA_NMS_IOU = 0.7
 
 
 def lecun_normal_(tensor: torch.Tensor, generator: torch.Generator):
@@ -45,12 +59,17 @@ def lecun_normal_(tensor: torch.Tensor, generator: torch.Generator):
 
 
 class VideoPoseDetector(nn.Module):
-    """Flagship video model (T=3, K=15, R50)."""
+    """Flagship video model (T=3, K=15, R50); ``backbone_type`` 'swin'
+    takes a Swin Transformer (Swin-L by default) in place of the ResNet."""
 
     def __init__(self, num_frames: int = 3, num_keypoints: int = 15,
                  num_classes: int = 1, num_query: int = 300,
-                 backbone_depth: int = 50,
+                 backbone_type: str = "resnet", backbone_depth: int = 50,
                  backbone_out_indices: Tuple[int, ...] = (1, 2, 3),
+                 swin_embed_dims: int = 192,
+                 swin_depths: Tuple[int, ...] = (2, 2, 18, 2),
+                 swin_num_heads: Tuple[int, ...] = (6, 12, 24, 48),
+                 swin_window_size: int = 7,
                  embed_dims: int = 256, num_encoder_layers: int = 6,
                  num_decoder_layers: int = 3, num_refine_layers: int = 2,
                  feedforward_channels: int = 1024, dropout: float = 0.1,
@@ -78,8 +97,16 @@ class VideoPoseDetector(nn.Module):
         self.cost_weights = dict(cls_weight=cls_cost_weight,
                                  kpt_weight=kpt_cost_weight,
                                  oks_weight=oks_cost_weight)
-        self.backbone = ResNet(backbone_depth, backbone_out_indices,
-                               norm_eval, frozen_stages, dtype)
+        if backbone_type == "swin":
+            self.backbone = SwinTransformer(
+                swin_embed_dims, swin_depths, swin_num_heads,
+                swin_window_size, out_indices=backbone_out_indices,
+                dtype=dtype)
+        elif backbone_type == "resnet":
+            self.backbone = ResNet(backbone_depth, backbone_out_indices,
+                                   norm_eval, frozen_stages, dtype)
+        else:
+            raise KeyError(f"unsupported backbone_type {backbone_type!r}")
         self.neck = ChannelMapper(self.backbone.out_channels, embed_dims,
                                   num_outs=4, dtype=dtype)
         self.head = VideoPoseHead(
@@ -266,11 +293,11 @@ class VideoPoseDetector(nn.Module):
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def forward_test(self, batch, topk_idx=None):
+    def forward_test(self, batch, topk_idx=None, with_nms: bool = True):
         """Padded detections per image, in the original image's pixels:
         det_kpts (B, M, K, 3), det_bboxes (B, M, 5), det_labels (B, M),
-        keep (B, M) (OKS-NMS). ``topk_idx``: the head's selection hook, as
-        in ``forward_outputs``."""
+        keep (B, M) (OKS-NMS; all True without ``with_nms``). ``topk_idx``:
+        the head's selection hook, as in ``forward_outputs``."""
         outs = self.forward_outputs(batch["img"], batch["img_shape"],
                                     topk_idx=topk_idx)
         B = batch["img"].shape[0]
@@ -309,13 +336,108 @@ class VideoPoseDetector(nn.Module):
         det_kpts = det_kpts * p ** 5 / (p ** 5 + 1e-10)
         det_kpts = torch.cat([det_kpts, scores[:, :, None, None] * p], -1)
 
-        areas = ((det_kpts[..., 0].amax(-1) - det_kpts[..., 0].amin(-1))
-                 * (det_kpts[..., 1].amax(-1) - det_kpts[..., 1].amin(-1)))
-        keep = torch.stack([
-            oks_nms_keep(det_kpts[b, ..., :2], scores[b], areas[b],
-                         self.oks_sigmas)
-            for b in range(B)])
+        if with_nms:
+            areas = ((det_kpts[..., 0].amax(-1) - det_kpts[..., 0].amin(-1))
+                     * (det_kpts[..., 1].amax(-1)
+                        - det_kpts[..., 1].amin(-1)))
+            keep = torch.stack([
+                oks_nms_keep(det_kpts[b, ..., :2], scores[b], areas[b],
+                             self.oks_sigmas)
+                for b in range(B)])
+        else:
+            keep = torch.ones((B, M), dtype=torch.bool, device=scores.device)
         return dict(det_kpts=det_kpts, det_bboxes=det_bboxes,
                     det_labels=torch.zeros((B, M), dtype=torch.int32,
                                            device=scores.device),
                     keep=keep)
+
+    # ------------------------------------------------------------------
+    # test-time augmentation
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _flip_images(batch):
+        """Horizontal flip inside each sample's valid width (the images
+        are padded right and bottom to the bucket, so a flip across the
+        bucket would move content into the padding)."""
+        img = batch["img"]                                 # (B, T, H, W, 3)
+        W = img.shape[3]
+        img_w = batch["img_shape"][:, 1].long()
+        xs = torch.arange(W, device=img.device)
+        src = torch.where(xs[None] < img_w[:, None],
+                          img_w[:, None] - 1 - xs[None], xs[None])  # (B, W)
+        idx = src[:, None, None, :, None].expand(img.shape)
+        return dict(batch, img=torch.gather(img, 3, idx))
+
+    def _flipped_back(self, batch, topk_idx=None):
+        """``forward_test`` without NMS on the flipped clip, keypoints mapped
+        back into the original orientation (x -> original width - x, left
+        and right swapped)."""
+        out = self.forward_test(self._flip_images(batch), topk_idx=topk_idx,
+                                with_nms=False)
+        ori_w = (batch["img_shape"][:, 1].float()
+                 / batch["scale_factor"][:, 0])
+        kpts = out["det_kpts"]                             # (B, M, K, 3)
+        kpts = torch.cat([(ori_w[:, None, None] - kpts[..., 0])[..., None],
+                          kpts[..., 1:]], -1)
+        perm = list(range(self.num_keypoints))
+        for a, b in FLIP_PAIRS_BY_K.get(self.num_keypoints, ()):
+            perm[a], perm[b] = perm[b], perm[a]
+        return kpts[:, :, perm], out["det_bboxes"][..., 4]
+
+    def _merge(self, kpts, scores):
+        """Union of passes -> box NMS on the keypoints' boxes -> the best
+        ``max_per_img`` kept entries, keypoint scores reset to 1; ``keep``
+        marks the finite (kept) slots."""
+        boxes = torch.stack([kpts[..., 0].amin(-1), kpts[..., 1].amin(-1),
+                             kpts[..., 0].amax(-1), kpts[..., 1].amax(-1)],
+                            -1)                            # (B, nM, 4)
+        keep = torch.stack([box_nms_keep(b, s, TTA_NMS_IOU)
+                            for b, s in zip(boxes, scores)])
+        ranked = torch.where(keep, scores,
+                             torch.full_like(scores, -float("inf")))
+        top_scores, top_idx = ranked.topk(self.max_per_img, dim=1)
+        det_kpts = torch.gather(kpts, 1, top_idx[..., None, None].expand(
+            *top_idx.shape, *kpts.shape[2:]))
+        det_kpts = torch.cat([det_kpts[..., :2],
+                              torch.ones_like(det_kpts[..., :1])], -1)
+        det_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(
+            *top_idx.shape, 4))
+        return dict(det_kpts=det_kpts,
+                    det_bboxes=torch.cat([det_boxes, top_scores[..., None]],
+                                         -1),
+                    det_labels=torch.zeros(top_idx.shape, dtype=torch.int32,
+                                           device=top_idx.device),
+                    keep=torch.isfinite(top_scores))
+
+    @torch.no_grad()
+    def forward_test_flip(self, batch):
+        """Flip test: the clip and its flip, each without OKS-NMS, merged by
+        box NMS (the reference's ``aug_test``). The output is
+        ``forward_test``'s."""
+        out = self.forward_test(batch, with_nms=False)
+        kpts_f, scores_f = self._flipped_back(batch)
+        return self._merge(torch.cat([out["det_kpts"], kpts_f], 1),
+                           torch.cat([out["det_bboxes"][..., 4], scores_f],
+                                     1))
+
+    @torch.no_grad()
+    def forward_test_aug(self, batch, flip: bool = False, topk_idx=None):
+        """One pass of test-time augmentation: ``det_kpts`` (B, M, K, 3) in
+        the original image's pixels and ``scores`` (B, M), no NMS;
+        ``flip`` runs the flipped clip and maps it back. Merge the passes
+        with ``merge_aug_detections``. ``topk_idx``: the head's selection
+        hook for the clip the pass runs (the flipped one with ``flip``)."""
+        if flip:
+            kpts, scores = self._flipped_back(batch, topk_idx)
+            return dict(det_kpts=kpts, scores=scores)
+        out = self.forward_test(batch, topk_idx=topk_idx, with_nms=False)
+        return dict(det_kpts=out["det_kpts"],
+                    scores=out["det_bboxes"][..., 4])
+
+    @torch.no_grad()
+    def merge_aug_detections(self, outs):
+        """``forward_test_aug`` passes merged: union, box NMS, the best
+        ``max_per_img`` (the reference's ``merge_aug_results`` and
+        ``multiclass_nms``). The output is ``forward_test``'s."""
+        return self._merge(torch.cat([o["det_kpts"] for o in outs], 1),
+                           torch.cat([o["scores"] for o in outs], 1))

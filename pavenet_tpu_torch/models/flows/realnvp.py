@@ -51,7 +51,7 @@ class RealNVP(nn.Module):
             persistent=False)
         # the JAX flow's jnp.asarray(log(2 pi), dtype)
         self.log_2pi = float(torch.tensor(math.log(2 * math.pi),
-                                          dtype=dtype))
+                                          dtype=dtype, device="cpu"))
         for i in range(num_coupling):
             self.add_module(f"s{i}", _CouplingNet(True, dtype))
             self.add_module(f"t{i}", _CouplingNet(False, dtype))

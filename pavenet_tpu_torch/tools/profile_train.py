@@ -1,9 +1,12 @@
-"""Where the flagship train step spends its time on one CUDA card.
+"""Where a config's train step spends its time on one CUDA card.
 
-    python -m pavenet_tpu_torch.tools.profile_train [--steps 8] [--out DIR]
+    python -m pavenet_tpu_torch.tools.profile_train [--config CFG]
+        [--steps 8] [--out DIR]
 
-Random weights from seed 0, ``dummy_clip_batch(train=True)`` at 800x1344,
-B=1, f32 (TF32 as PyTorch defaults it: convolutions yes, matmuls no). Two
+The flagship config unless ``--config`` names another (the Swin-L and T=5
+configs take the same batch). Random weights from seed 0,
+``dummy_clip_batch(train=True)`` at 800x1344, B=1, the config's frames,
+f32 (TF32 as PyTorch defaults it: convolutions yes, matmuls no). Two
 warm-up mini-steps, ``--steps`` timed mini-steps (host clock to a
 synchronise), then ``--steps`` mini-steps under ``torch.profiler``; with
 the default 8 (the config's ``cumulative_iters``) each window holds one
@@ -57,6 +60,7 @@ def main():
     from pavenet_tpu_torch.models.zoo import dummy_clip_batch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", default=str(CONFIG))
     p.add_argument("--steps", type=int, default=8)
     p.add_argument("--out", default=str(ROOT / "build" / "profile"))
     args = p.parse_args()
@@ -67,9 +71,10 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
 
-    state = init_trainer(str(CONFIG), device="cuda", seed=0)
+    state = init_trainer(args.config, device="cuda", seed=0)
     rng = np.random.RandomState(0)
-    batches = [dummy_clip_batch(rng, max_gt=state.max_gt, train=True)
+    batches = [dummy_clip_batch(rng, num_frames=state.model.num_frames,
+                                max_gt=state.max_gt, train=True)
                for _ in range(2 + 2 * args.steps)]
     for batch in batches[:2]:
         train_step(state, batch)
@@ -99,8 +104,8 @@ def main():
             by_kind[kind_of(e.name)] += us / 1e3 / args.steps
             by_name[e.name] += us / 1e3 / args.steps
     busy = sum(by_kind.values())
-    print(f"train step, flagship 800x1344 B=1 f32, {args.steps} timed and "
-          f"{args.steps} profiled mini-steps | {smi}")
+    print(f"train step, {Path(args.config).name} 800x1344 B=1 f32, "
+          f"{args.steps} timed and {args.steps} profiled mini-steps | {smi}")
     print(f"wall {plain_ms:.2f} ms/step unprofiled ({plain_match_ms:.2f} "
           f"ms/step host matching), {wall_ms:.2f} ms/step profiled "
           f"({match_ms:.2f}); device busy {busy:.2f} ms/step: idle "
@@ -110,7 +115,8 @@ def main():
         print(f"  {kind:<28} {ms:9.2f} ms/step {100 * ms / busy:6.1f}%")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    with open(out / "profile_train.txt", "w") as f:
+    with open(out / f"profile_train_{Path(args.config).stem}.txt",
+              "w") as f:
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
             f.write(f"{ms:10.3f} ms/step  {kind_of(name):<28} {name}\n")
 

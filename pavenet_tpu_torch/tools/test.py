@@ -3,17 +3,19 @@ package, keypoint models).
 
     python -m pavenet_tpu_torch.tools.test <config.py> <checkpoint.pt>
         [--eval keypoints] [--out dets.json] [--format-only]
+        [--flip-test] [--aug-scales 1.0 0.75 ...]
         [--dtype f32|bf16] [--device cuda|cpu] [--cfg-options k=v ...]
 
 ``data.test`` through the test pipeline with the uint8 feed normalised on
 the card (unless ``test_pipeline_kwargs`` sets ``normalize_on_device``
 False), the checkpoint's model weights (``utils/checkpoint.py::
-restore_variables``), ``run_inference``, then ``--out`` and the keypoint
-metrics. ``main(argv)`` returns the metrics and the loop's timing.
+restore_variables``), ``run_inference`` (with ``--flip-test`` the flip
+merge, with ``--aug-scales`` one pass per scale and flip, merged), then
+``--out`` and the keypoint metrics. ``main(argv)`` returns the metrics and
+the loop's timing.
 
-Not here: ``--flip-test`` and ``--aug-scales`` (test-time augmentation),
-``--show``, ``--show-dir``, ``--show-score-thr``, ``--show-wait``,
-``--compile-cache``, and the detection models' branch.
+Not here: ``--show``, ``--show-dir``, ``--show-score-thr``,
+``--show-wait``, ``--compile-cache``, and the detection models' branch.
 """
 from __future__ import annotations
 
@@ -25,11 +27,17 @@ import os
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="Test a pose model",
-        epilog="Not ported: --flip-test, --aug-scales, --show, --show-dir, "
-               "--show-score-thr, --show-wait, --compile-cache.")
+        epilog="Not ported: --show, --show-dir, --show-score-thr, "
+               "--show-wait, --compile-cache.")
     p.add_argument("config")
     p.add_argument("checkpoint")
     p.add_argument("--eval", default="keypoints", choices=["keypoints"])
+    p.add_argument("--flip-test", action="store_true",
+                   help="merge each clip's detections with its horizontal "
+                        "flip's (box NMS)")
+    p.add_argument("--aug-scales", type=float, nargs="+", default=None,
+                   help="multi-scale test-time augmentation ratios, merged "
+                        "by box NMS (with --flip-test: scales x flip)")
     p.add_argument("--out", default=None, help="dump detections json")
     p.add_argument("--format-only", action="store_true",
                    help="dump --out without evaluating")
@@ -69,7 +77,8 @@ def main(argv=None) -> dict:
                         drop_last=False, num_keypoints=dataset.NUM_KEYPOINTS)
     timing = {}
     detections = gather_detections(run_inference(
-        model, loader, logger=logger, img_norm=img_norm, timing=timing))
+        model, loader, logger=logger, img_norm=img_norm, timing=timing,
+        flip_test=args.flip_test, aug_scales=args.aug_scales))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(detections, f)

@@ -14,7 +14,8 @@ renamed and laid out by fixed rules:
   ``running_mean``/``running_var`` (flax ``BatchNorm`` and the JAX
   ``FrozenBatchNorm`` alike; the port's norms keep no
   ``num_batches_tracked``)
-- free parameters (embeddings) keep their names.
+- free parameters (embeddings, Swin's ``relative_position_bias_table``)
+  keep their names and layout.
 
 The fused per-frame ``sampling_offsets``/``attention_weights`` Dense layers
 stay one Linear, output order unchanged. The RealNVP flows (``enc_flow``,
@@ -33,7 +34,8 @@ TRAIN_ONLY = frozenset({"fc_hm"})
 # subtrees a JAX init makes only in train mode
 FLOWS = ("enc_flow", "dec_flow", "flow")
 FREE_PARAMS = frozenset({"level_embeds", "query_embedding",
-                         "refine_query_embedding"})
+                         "refine_query_embedding",
+                         "relative_position_bias_table"})
 STATS = {"mean": "running_mean", "var": "running_var"}
 
 

@@ -24,6 +24,8 @@ import numpy as np
 import optax
 import pytest
 import torch
+# loaded while the file is collected: see tests/test_torch_trainable_bn.py
+import torch._dynamo  # noqa: F401
 
 from pavenet_tpu.apis import train as jtrain
 from pavenet_tpu.core import assigner as jassigner

@@ -41,6 +41,12 @@ import numpy as np
 import optax
 import pytest
 import torch
+# torch imports torch._dynamo lazily, at a process's first optimizer; the
+# reference-oracle tests of this suite stub ``tabulate`` in sys.modules
+# without a module spec, after which that import fails. Imported here,
+# while each worker collects the files and before any test runs, so that
+# the optimizer tests do not depend on which files a worker ran first.
+import torch._dynamo  # noqa: F401
 
 from pavenet_tpu.apis import train as jtrain
 from pavenet_tpu.models.detectors import VideoPoseDetector as JDetector

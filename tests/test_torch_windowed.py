@@ -19,6 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+# loaded while the file is collected: see tests/test_torch_trainable_bn.py
+import torch._dynamo  # noqa: F401
 
 from pavenet_tpu.apis import distill as jdistill
 from pavenet_tpu.apis.distill import make_distill_step
