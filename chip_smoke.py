@@ -3,7 +3,9 @@
 dataset-to-AP CLIs once on one CUDA card: the flagship (deformable
 encoder) in f32 and bf16, its from-scratch recipe (trainable BatchNorm),
 its windowed-encoder variant, the Swin-L and T=5 configs, flip and
-multi-scale test-time augmentation and the distillation CLI.
+multi-scale test-time augmentation, the distillation CLI, and the PETR
+family (PETR R50 and HRNet-W48 on COCO, PETR Swin-L on CrowdPose, HRNet-W48
+video pretraining) with COCO-format data through the CLIs.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parent DIR   # only phases 1-3 and the comparison
@@ -27,12 +29,15 @@ non-zero):
    decoder Q=450) on uniform-random inputs, plus edge levels (1-row,
    1-column, 1x1), the other head sizes at the encoder call (SOIT's seg
    encoder, one 256-channel head at B=1; D=16 and D=64 over 8 heads), the
-   T=5 encoder call (B*T=5), and the 12 captured calls; value in f32 and
-   bf16; times from CUDA events, median of 20.
+   T=5 encoder call (B*T=5), the PETR family's calls (the encoder at
+   B*T=1, the one-level heatmap encoder over level 0 with Q=N=16800, the
+   pose decoder at P=17 and P=14), and the 14 captured calls (with a PETR
+   clip's first encoder and pose-decoder calls); value in f32 and bf16;
+   times from CUDA events, median of 20.
 5. msda backward kernel against autograd of the plain version at the
-   encoder, pose decoder and train joint decoder shapes, the edge levels
-   and the other head sizes, and on the captured calls (g seeded), f32 and
-   bf16; backward times of both.
+   encoder, pose decoder and train joint decoder shapes, the edge levels,
+   the other head sizes and the PETR family's calls, and on the captured
+   calls (g seeded), f32 and bf16; backward times of both.
 6. msda probes, at the encoder call in-model and random, f32 and bf16:
    each kernel, its empty-body twin, the forward without corner loads, the
    forward with every query of a block on its first query's locations
@@ -126,6 +131,28 @@ non-zero):
    ``tools.test.main`` on the student (5 msda and 6 window launches per
    clip) and the student cuda against torch clip by clip as the
    checkpoint.
+19. PETR R50 on COCO (``configs/petr/petr_r50_16x2_100e_coco.py``: T=1,
+   K=17, 300 queries, 6/3/2 layers, max_per_img 40, no rescoring, no NMS):
+   phase 8 in f32 and bf16 (11 msda launches per clip, every detection
+   kept with unit keypoint scores) and phase 9 in f32 (8 mini-steps, 12+12
+   launches each: the one-level heatmap encoder adds one), the
+   cuda-vs-torch mini-step on the plain path's top-k (losses with
+   ``loss_hm``, ``loss_oks`` and ``d*.loss_oks_refine`` within 1e-4).
+20. PETR HRNet-W48 (``petr_hrnetw48_16x2_100e_coco.py``): phases 8 and 9
+   in f32 with the checks of 19, peak memory.
+21. HRNet-W48 video pretraining
+   (``pretrained/petr_hrnet_num_frame_3_bs16_20e_coco_rle.py``: T=3,
+   K=17, RLE, heatmap weight 0): serve (11 per clip), train 16
+   mini-steps = its one update (11+11 each), cuda against torch.
+22. PETR Swin-L on CrowdPose (K=14, the pose decoder at P=14): serve in
+   f32, 11 per clip, cuda against torch.
+23. COCO-format data through the CLIs: seeded scenes at 448x768 with a
+   K=17 json under ``build/chip_data/coco/``; ``tools.train.main`` on the
+   PETR R50 config for 4 mini-steps (12+12 launches each),
+   ``tools.test.main`` on its checkpoint (11 per clip, ``coco/`` metrics,
+   eval ms/clip), ``tools.eval_metric.main`` on the dumped detections
+   (the same metrics), and cuda against torch clip by clip on the plain
+   path's top-k.
 
 Each run sets every launch count to 0 just before it and reads them just
 after. The last two lines are the kernels' JSON record (launches by run,
@@ -145,13 +172,24 @@ CONFIG = "configs/videopose/pavenet_r50_frames3_posetrack17.py"
 # PAVE-Net's Swin-L config (PoseTrack18) and the T=5 config
 SWIN_CONFIG = "configs/videopose/pavenet_swin_frames3_posetrack18.py"
 FRAMES5_CONFIG = "configs/videopose/pavenet_r50_frames5_posetrack17.py"
+# the PETR family: PETR R50 and HRNet-W48 on COCO, PETR Swin-L on
+# CrowdPose, HRNet-W48 video pretraining on fake COCO clips (T=3)
+PETR_CONFIG = "configs/petr/petr_r50_16x2_100e_coco.py"
+PETR_HRNET_CONFIG = "configs/petr/petr_hrnetw48_16x2_100e_coco.py"
+PETR_CROWDPOSE_CONFIG = (
+    "configs/petr/petr_swin-l-p4-w7-224-22kto1k_16x1_100e_crowdpose.py")
+HRNET_PRETRAIN_CONFIG = ("configs/petr/pretrained/"
+                         "petr_hrnet_num_frame_3_bs16_20e_coco_rle.py")
 FLAGSHIP_LEVELS = ((100, 168), (50, 84), (25, 42), (13, 21))  # 800x1344
 EDGE_LEVELS = ((6, 9), (3, 5), (1, 3), (2, 1))
 WINDOWED_CONFIG = ("configs/videopose/"
                    "pavenet_r50_frames3_posetrack17_windowed.py")
 CLIPS = 3
 CALLS_PER_CLIP = 11   # 6 encoder + 3 pose-decoder + 2 joint-decoder layers
-TRAIN_STEPS = 8       # = cumulative_iters of the flagship config
+# a PETR train mini-step adds the one-level heatmap encoder's call
+PETR_TRAIN_CALLS = CALLS_PER_CLIP + 1
+TRAIN_STEPS = 8       # = cumulative_iters of the flagship config (16 for
+                      # the video-pretraining configs: one update)
 # the windowed variant: 6 encoder layers of window attention, one launch
 # per layer over its four pyramid levels; msda only in the 3 pose-decoder
 # and 2 joint-decoder layers
@@ -190,6 +228,11 @@ CHIP_WORK = ROOT / "build" / "chip_work"
 E2E_SCENES = ["--train-videos", "6", "--val-videos", "3", "--frames", "4",
               "--height", "448", "--width", "768", "--seed", "0"]
 E2E_STEPS, E2E_RESUMED_STEPS = 8, 10
+# phase 23: COCO-format scenes (K=17) and PETR's train CLI mini-steps
+COCO_DATA = CHIP_DATA / "coco"
+COCO_IMAGES = {"train": 6, "val": 3}
+COCO_HW = (448, 768)
+COCO_STEPS = 4
 # phase 18: the test CLI's test-time augmentation runs (name, flip test,
 # scales) and the distillation CLI's steps
 TTA_RUNS = (("flip", True, None), ("flip_scales", True, (1.0, 0.75)))
@@ -265,8 +308,12 @@ def kernel_cases():
     calls, edge levels, the other head sizes at the encoder call (the
     flagship levels): SOIT's seg encoder (one 256-channel head, B=1), 128
     and 512 channels over 8 heads (D=16, 64); and the T=5 config's encoder
-    call (its five frames folded into the batch)."""
+    call (its five frames folded into the batch); the PETR family's calls:
+    the encoder at B*T=1, the one-level heatmap encoder (level 0 alone,
+    train only) and the pose decoder at P=17 (COCO) and P=14
+    (CrowdPose)."""
     N = sum(h * w for h, w in FLAGSHIP_LEVELS)
+    n0 = FLAGSHIP_LEVELS[0][0] * FLAGSHIP_LEVELS[0][1]
     return [("encoder", 3, FLAGSHIP_LEVELS, N, 8, 4, 32),
             ("pose_decoder", 3, FLAGSHIP_LEVELS, 300, 8, 15, 32),
             ("joint_decoder", 3, FLAGSHIP_LEVELS, 300, 8, 4, 32),
@@ -275,7 +322,11 @@ def kernel_cases():
             ("encoder_h1_d256", 1, FLAGSHIP_LEVELS, N, 1, 4, 256),
             ("encoder_d16", 3, FLAGSHIP_LEVELS, N, 8, 4, 16),
             ("encoder_d64", 3, FLAGSHIP_LEVELS, N, 8, 4, 64),
-            ("encoder_frames5", 5, FLAGSHIP_LEVELS, N, 8, 4, 32)]
+            ("encoder_frames5", 5, FLAGSHIP_LEVELS, N, 8, 4, 32),
+            ("petr_encoder", 1, FLAGSHIP_LEVELS, N, 8, 4, 32),
+            ("petr_heatmap", 1, FLAGSHIP_LEVELS[:1], n0, 8, 4, 32),
+            ("pose_decoder_k17", 1, FLAGSHIP_LEVELS, 300, 8, 17, 32),
+            ("pose_decoder_k14", 1, FLAGSHIP_LEVELS, 300, 8, 14, 32)]
 
 
 def forward_record(case, v, levels, loc, attn, rel_tol, ms_deform_attn,
@@ -402,7 +453,7 @@ def capture_in_model(config=CONFIG, prefix=""):
     (seed 0, the first timed synthetic clip in the 800x1344 bucket), run on
     the plain path so that no kernel takes part: ``[(name, value, levels,
     loc, attn)]``, named ``prefix`` + encoder0-5, pose_decoder0-2,
-    joint_decoder0-1 in call order."""
+    joint_decoder0-1 in call order (the pose decoder's P is K)."""
     import torch
     from pavenet_tpu_torch.apis import init_detector
     from pavenet_tpu_torch.apis.inference import host_batch
@@ -433,7 +484,8 @@ def capture_in_model(config=CONFIG, prefix=""):
     captured, seen = [], {}
     for v, levels, loc, attn in calls:
         kind = ("encoder" if loc.shape[1] == v.shape[1] else
-                "pose_decoder" if loc.shape[4] == 15 else "joint_decoder")
+                "pose_decoder" if loc.shape[4] == model.num_keypoints
+                else "joint_decoder")
         captured.append((f"{prefix}{kind}{seen.get(kind, 0)}", v, levels,
                          loc, attn))
         seen[kind] = seen.get(kind, 0) + 1
@@ -800,7 +852,9 @@ def synthetic_clips(seed=0, frames=3):
              for _ in range(frames)] for _ in range(CLIPS + 1)]
 
 
-def check_detections(out, M=20, K=15):
+def check_detections(out, M=20, K=15, keep_all=False):
+    """Shapes and finite values of one clip's detections; ``keep_all``: no
+    NMS (PETR), every detection kept with unit keypoint scores."""
     import numpy as np
     shapes = {k: out[k].shape for k in ("det_kpts", "det_bboxes", "keep")}
     if shapes != {"det_kpts": (M, K, 3), "det_bboxes": (M, 5), "keep": (M,)}:
@@ -808,6 +862,10 @@ def check_detections(out, M=20, K=15):
     for k in ("det_kpts", "det_bboxes"):
         if not np.isfinite(out[k]).all():
             raise AssertionError(f"{k} has non-finite values")
+    if keep_all and not (out["keep"].all()
+                         and (out["det_kpts"][..., 2] == 1).all()):
+        raise AssertionError("PETR detections: keep not all True or "
+                             "keypoint scores not 1")
 
 
 def reset_launches():
@@ -864,8 +922,10 @@ def serve(smi, config, per_clip, dtype="f32"):
     model = init_detector(str(ROOT / config), device="cuda", seed=0,
                           dtype=dtype)
     T = model.num_frames
+    shape = dict(M=model.max_per_img, K=model.num_keypoints,
+                 keep_all=not model.with_nms)
     clips = synthetic_clips(frames=T)
-    check_detections(inference_detector(model, clips[0]))   # warm-up
+    check_detections(inference_detector(model, clips[0]), **shape)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -879,7 +939,7 @@ def serve(smi, config, per_clip, dtype="f32"):
     clip_ms = start.elapsed_time(end) / CLIPS
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     for out in outs:
-        check_detections(out)
+        check_detections(out, **shape)
     check_launches(f"serve {config} {dtype}, {CLIPS} clips", launches,
                    expect(per_clip, dtype), CLIPS)
     batch = {k: torch.from_numpy(v).cuda()
@@ -923,7 +983,8 @@ def serve_parity_f32(config, model, plain, batch):
     same, score_err, rank_gap = topk_tie(own_outs, want_outs)
     kpt_err = (got["det_kpts"][..., :2]
                - want["det_kpts"][..., :2]).abs().max().item()
-    keep_equal = torch.equal(got["keep"], want["keep"])
+    keep_equal = torch.equal(got["keep"], want["keep"]) and (
+        model.with_nms or bool(got["keep"].all()))
     if not (kpt_err <= 1e-2 and keep_equal and score_err <= 1e-5
             and rank_gap <= 1e-5):
         raise AssertionError(
@@ -1003,9 +1064,10 @@ def serve_parity_bf16(config, model, plain, batch):
 
 def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
           batch_size=1):
-    """``TRAIN_STEPS`` mini-steps of ``dummy_clip_batch(train=True)`` at
-    ``hw``, in ``dtype``, on ``config``: one applied update where the
-    config accumulates 8 mini-steps, eight where it accumulates none.
+    """``TRAIN_STEPS`` mini-steps (or the config's accumulation, where it
+    accumulates more) of ``dummy_clip_batch(train=True)`` at ``hw``, in
+    ``dtype``, on ``config``: one applied update where the config
+    accumulates 8 (or 16) mini-steps, eight where it accumulates none.
     Frozen parameters stay, every parameter with a gradient moves, and
     every trainable BatchNorm's running statistics move. Returns the run's
     launches."""
@@ -1020,7 +1082,8 @@ def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
     state = init_trainer(str(ROOT / config), device="cuda", seed=0,
                          dtype=dtype)
     k = state.accumulate_steps
-    if TRAIN_STEPS % k:
+    steps = max(TRAIN_STEPS, k)
+    if steps % k:
         raise AssertionError(f"cumulative_iters {k}")
     model = state.model
     labels = param_labels(model)
@@ -1032,8 +1095,9 @@ def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
     rng = np.random.RandomState(0)
     batches = [dummy_clip_batch(rng, batch_size, model.num_frames,
                                 height=hw[0], width=hw[1],
+                                num_keypoints=model.num_keypoints,
                                 max_gt=state.max_gt, train=True)
-               for _ in range(TRAIN_STEPS)]
+               for _ in range(steps)]
     # with one update per mini-step: the parameters whose first gradient
     # is well above Adam's eps must move (hooks on the first step only)
     first_grad, hooks = {}, []
@@ -1046,7 +1110,7 @@ def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
     hungarian_assign.seconds = 0.0
     step_ms, wall_s, grads_seen = [], [], None
     for i, batch in enumerate(batches):
-        if k > 1 and i == TRAIN_STEPS - 1:
+        if k > 1 and i == steps - 1:
             # parameters whose clipped mean gradient so far is well above
             # Adam's eps: the update must move them
             norm = torch.linalg.vector_norm(torch.stack(
@@ -1074,12 +1138,11 @@ def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
     launches = read_launches()
     match_s = hungarian_assign.seconds
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    check_launches(f"train {config} {dtype}, {TRAIN_STEPS} mini-steps",
-                   launches, expect(per_step, dtype), TRAIN_STEPS)
-    if (state.updates, state.mini_step) != (TRAIN_STEPS // k, 0):
+    check_launches(f"train {config} {dtype}, {steps} mini-steps",
+                   launches, expect(per_step, dtype), steps)
+    if (state.updates, state.mini_step) != (steps // k, 0):
         raise AssertionError(f"{state.updates} updates, mini-step "
-                             f"{state.mini_step}: expected "
-                             f"{TRAIN_STEPS // k}")
+                             f"{state.mini_step}: expected {steps // k}")
     if k == 1:
         grads_seen = {n for n, g in first_grad.items() if g.item() > 1e-6}
     frozen_moved, stuck = [], []
@@ -1103,15 +1166,15 @@ def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
     print(f"train {config} {dtype} losses (last mini-step): "
           + json.dumps({k: round(v.item(), 5) for k, v in losses.items()}),
           flush=True)
-    print(f"train {config}: {TRAIN_STEPS} mini-steps at {hw[0]}x{hw[1]}, "
+    print(f"train {config}: {steps} mini-steps at {hw[0]}x{hw[1]}, "
           f"B={batch_size}, T={model.num_frames}, {dtype}, {state.max_gt} "
           f"GT slots, "
           f"{state.updates} applied update(s); launches "
           f"{json.dumps(launches)}; "
           f"{statistics.median(step_ms[1:]):.2f} ms/step (median of steps "
-          f"2-{TRAIN_STEPS}, CUDA events; {min(step_ms[1:]):.2f}-"
+          f"2-{steps}, CUDA events; {min(step_ms[1:]):.2f}-"
           f"{max(step_ms[1:]):.2f}); matching on the host "
-          f"{match_s * 1e3 / TRAIN_STEPS:.2f} ms/step = "
+          f"{match_s * 1e3 / steps:.2f} ms/step = "
           f"{100 * match_s / sum(wall_s):.2f}% of the wall time; peak "
           f"memory {peak_gb:.2f} GiB; {n_frozen} frozen tensors unchanged, "
           f"all {len(grads_seen)} of {len(before) - n_frozen} trained tensors "
@@ -1149,7 +1212,8 @@ def train_parity(config, max_gt=30, dtype="f32", hw=(800, 1344),
                          for impl in ("cuda", "torch"))
     batch = to_device(dummy_clip_batch(
         np.random.RandomState(1), batch_size, plain.num_frames,
-        height=hw[0], width=hw[1], max_gt=max_gt, train=True), "cuda")
+        height=hw[0], width=hw[1], num_keypoints=plain.num_keypoints,
+        max_gt=max_gt, train=True), "cuda")
     bf16 = dtype == "bf16"
     topk, tie = None, None
     if fixed_topk or bf16:
@@ -1375,7 +1439,8 @@ def plain_topk_parity(models, dataset, img_norm, flip_test=False,
     kpt_err = score_err = 0.0
     own_topk = n_passes = 0
     for batch in ClipLoader(dataset, batch_size=1, shuffle=False,
-                            drop_last=False):
+                            drop_last=False,
+                            num_keypoints=dataset.NUM_KEYPOINTS):
         host = {k: batch[k] for k in FEED_KEYS}
         passes = {impl: [] for impl in models}
         with torch.inference_mode():
@@ -1646,6 +1711,137 @@ def dataset_to_ap(smi):
     return runs
 
 
+def write_coco_scenes(root, seed=0):
+    """COCO-format keypoint scenes (K=17) at ``COCO_HW``: per split of
+    ``COCO_IMAGES``, seeded noise images with 1-3 people each, a person a
+    filled box with its keypoints drawn inside (visibility 2 or 0), and the
+    json (bbox, area, num_keypoints) as ``<root>/<split>.json``."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    H, W = COCO_HW
+    for split, n in COCO_IMAGES.items():
+        (root / split).mkdir(parents=True, exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            img = rng.randint(0, 256, (H, W, 3), dtype=np.uint8)
+            name = f"{split}/{i:06d}.jpg"
+            images.append(dict(id=i + 1, file_name=name, height=H, width=W))
+            for _ in range(rng.randint(1, 4)):
+                bw, bh = rng.uniform(80, 300), rng.uniform(150, 400)
+                x0, y0 = rng.uniform(0, W - bw), rng.uniform(0, H - bh)
+                k = np.stack([x0 + rng.rand(17) * bw, y0 + rng.rand(17) * bh,
+                              (rng.rand(17) > 0.2) * 2.0], 1)
+                cv2.rectangle(img, (int(x0), int(y0)),
+                              (int(x0 + bw), int(y0 + bh)),
+                              tuple(int(c) for c in rng.randint(0, 256, 3)),
+                              -1)
+                for x, y, v in k:
+                    if v:
+                        cv2.circle(img, (int(x), int(y)), 4,
+                                   (255, 255, 255), -1)
+                anns.append(dict(
+                    id=len(anns) + 1, image_id=i + 1, category_id=1,
+                    keypoints=k.reshape(-1).round(2).tolist(),
+                    num_keypoints=int((k[:, 2] > 0).sum()),
+                    bbox=[x0, y0, bw, bh], area=bw * bh, iscrowd=0))
+            cv2.imwrite(str(root / name), img)
+        with open(root / f"{split}.json", "w") as f:
+            json.dump(dict(images=images, annotations=anns, categories=[
+                dict(id=1, name="person")]), f)
+
+
+def petr_cli(smi):
+    """Phase 23: COCO-format scenes through the CLIs on the PETR R50
+    config: ``tools.train`` 4 mini-steps (12+12 msda launches each),
+    ``tools.test`` on its checkpoint (11 per clip; ``coco/`` metrics, eval
+    ms/clip), ``tools.eval_metric`` on the dumped detections (the same
+    metrics), then cuda against torch clip by clip on the plain path's
+    top-k. Returns the runs' launches."""
+    import shutil
+    import torch
+    from pavenet_tpu_torch.apis.inference import build_model
+    from pavenet_tpu_torch.datasets.pipelines import build_test_pipeline
+    from pavenet_tpu_torch.tools import eval_metric as eval_cli
+    from pavenet_tpu_torch.tools import test as test_cli
+    from pavenet_tpu_torch.tools import train as train_cli
+    from pavenet_tpu_torch.utils.checkpoint import restore_variables
+
+    work = CHIP_WORK / "petr"
+    for d in (COCO_DATA, work):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_coco_scenes(COCO_DATA)
+    print(f"coco scenes: {time.perf_counter() - t0:.2f} s to write "
+          f"{COCO_IMAGES} images at {COCO_HW[0]}x{COCO_HW[1]}", flush=True)
+    config = str(ROOT / PETR_CONFIG)
+    opts = ["--cfg-options", "data.samples_per_gpu=1"] + [
+        f"data.{split}.{key}={value}"
+        for split, name in (("train", "train"), ("val", "val"),
+                            ("test", "val"))
+        for key, value in (("ann_file", f"{COCO_DATA}/{name}.json"),
+                           ("img_prefix", f"{COCO_DATA}/"))]
+    runs = {}
+    reset_launches()
+    res = train_cli.main([config, "--work-dir", str(work), "--max-steps",
+                          str(COCO_STEPS), "--no-validate"] + opts)
+    runs["petr_cli_train_f32"] = read_launches()
+    check_launches(f"petr_cli_train_f32, {res['steps_run']} mini-steps",
+                   runs["petr_cli_train_f32"],
+                   {"msda_fwd": PETR_TRAIN_CALLS,
+                    "msda_bwd": PETR_TRAIN_CALLS}, res["steps_run"])
+    if res["steps"] != COCO_STEPS or "loss_hm" not in res["losses"]:
+        raise AssertionError(f"PETR train CLI: {res}")
+    ckpt = res["checkpoint"]
+    print(f"petr_cli_train_f32: tools.train.main --max-steps {COCO_STEPS} "
+          f"on {PETR_CONFIG}: step {res['steps']}, {res['updates']} "
+          f"updates; launches {json.dumps(runs['petr_cli_train_f32'])}; "
+          f"{res['step_ms']:.2f} ms per mini-step (median, host clock, "
+          f"loader wait included), data_time {res['data_time_ms']:.2f} ms; "
+          f"losses {json.dumps(res['losses'])} | {smi}", flush=True)
+    dets = work / "dets.json"
+    reset_launches()
+    out = test_cli.main([config, ckpt, "--dtype", "f32", "--out",
+                         str(dets)] + opts)
+    runs["petr_cli_test_f32"] = read_launches()
+    check_launches(f"petr_cli_test_f32, {out['clips']} clips",
+                   runs["petr_cli_test_f32"], {"msda_fwd": CALLS_PER_CLIP},
+                   out["clips"])
+    metrics = eval_cli.main([config, str(dets)] + opts)
+    if not (out["metrics"] and "coco/AP" in out["metrics"]
+            and metrics == out["metrics"]):
+        raise AssertionError(f"PETR test CLI metrics {out['metrics']}, "
+                             f"eval_metric {metrics}")
+    print(f"petr_cli_test_f32: tools.test.main on {os.path.basename(ckpt)}: "
+          f"{out['clips']} clips, {out['detections']} detections (no NMS, "
+          f"max_per_img 40), launches "
+          f"{json.dumps(runs['petr_cli_test_f32'])}; eval loop "
+          f"{out['ms_per_clip']:.2f} ms/clip (host pipeline included; first "
+          f"clip {out['first_clip_s']:.2f} s); metrics "
+          f"{json.dumps(out['metrics'])}; tools.eval_metric.main on the "
+          f"dumped detections: the same {len(metrics)} metrics | {smi}",
+          flush=True)
+    tf32(False)
+    cfg = train_cli.load_config(config, opts[1:])
+    kwargs, img_norm = train_cli.eval_pipeline_kwargs(cfg)
+    models = {}
+    for impl in ("cuda", "torch"):
+        models[impl] = build_model(cfg, impl=impl).cuda().eval()
+        models[impl].load_state_dict(restore_variables(ckpt))
+    par = plain_topk_parity(models, train_cli.build_dataset(
+        cfg, "test", build_test_pipeline(**kwargs)), img_norm)
+    del models
+    torch.cuda.empty_cache()
+    tf32(True)
+    print(f"petr cli parity: impl=cuda vs impl=torch on "
+          f"{os.path.basename(ckpt)}, TF32 off: on the plain path's top-k, "
+          f"keep equal (all True), keypoints within {par['kpt_err']:.3e} px "
+          f"(limit 1e-2), scores within {par['score_err']:.3e} (limit "
+          f"1e-5), {par['own_topk']} of {par['passes']} clips with the same "
+          f"own top-k", flush=True)
+    return runs
+
+
 def kernel_record(name, records, launches, replaces, **extra):
     """The kernel's line: ``ms``, ``plain_ms``, ``library_ms`` and
     ``bound_ms`` of one main-path call (msda: the encoder call on
@@ -1707,6 +1903,8 @@ def main(argv=None):
     # encoder call of one T=5 clip
     captured = capture_in_model()
     captured.append(capture_in_model(FRAMES5_CONFIG, "frames5_")[0])
+    captured.extend(c for c in capture_in_model(PETR_CONFIG, "petr_")
+                    if c[0] in ("petr_encoder0", "petr_pose_decoder0"))
     print("captured: " + ", ".join(
         f"{n} {tuple(loc.shape)}" for n, _, _, loc, _ in captured),
         flush=True)
@@ -1781,10 +1979,43 @@ def main(argv=None):
     # both paths on the plain path's top-k, the tie checked
     train_parity(FRAMES5_CONFIG, fixed_topk=True)
     torch.cuda.empty_cache()
+
+    # 19-22. the PETR family: PETR R50 on COCO (serve f32 and bf16, train
+    # with the heatmap encoder's call), PETR HRNet-W48, HRNet-W48 video
+    # pretraining (T=3, one update of 16 mini-steps), PETR Swin-L on
+    # CrowdPose (K=14); each with its cuda-vs-torch checks, the train
+    # mini-steps on the plain path's top-k
+    petr = {"msda_fwd": PETR_TRAIN_CALLS, "msda_bwd": PETR_TRAIN_CALLS}
+    serve_one = {"msda_fwd": CALLS_PER_CLIP}
+    for dtype in ("f32", "bf16"):
+        runs[f"petr_serve_{dtype}"], serve_ms[("petr", dtype)] = serve(
+            smi, PETR_CONFIG, serve_one, dtype)
+    runs["petr_train_f32"], _ = train(smi, PETR_CONFIG, petr)
+    train_parity(PETR_CONFIG, fixed_topk=True)
+    torch.cuda.empty_cache()
+    runs["petr_hrnet_serve_f32"], serve_ms[("petr_hrnet", "f32")] = serve(
+        smi, PETR_HRNET_CONFIG, serve_one)
+    runs["petr_hrnet_train_f32"], _ = train(smi, PETR_HRNET_CONFIG, petr)
+    train_parity(PETR_HRNET_CONFIG, fixed_topk=True)
+    torch.cuda.empty_cache()
+    runs["hrnet_pretrain_serve_f32"], serve_ms[("hrnet_pretrain", "f32")] \
+        = serve(smi, HRNET_PRETRAIN_CONFIG, serve_one)
+    runs["hrnet_pretrain_train_f32"], _ = train(smi, HRNET_PRETRAIN_CONFIG,
+                                                flagship)
+    train_parity(HRNET_PRETRAIN_CONFIG, fixed_topk=True)
+    torch.cuda.empty_cache()
+    runs["petr_crowdpose_serve_f32"], serve_ms[("petr_crowdpose", "f32")] \
+        = serve(smi, PETR_CROWDPOSE_CONFIG, serve_one)
+    torch.cuda.empty_cache()
+    # 23. COCO-format data through the CLIs
+    runs.update(petr_cli(smi))
+    torch.cuda.empty_cache()
     print("serve forward_test ms/clip, f32 / bf16: " + ", ".join(
         f"{m} {serve_ms[(m, 'f32')]:.2f} / "
         + (f"{serve_ms[(m, 'bf16')]:.2f}" if (m, "bf16") in serve_ms
-           else "-") for m in ("flagship", "windowed", "swin", "frames5"))
+           else "-") for m in ("flagship", "windowed", "swin", "frames5",
+                               "petr", "petr_hrnet", "hrnet_pretrain",
+                               "petr_crowdpose"))
         + f" | {smi}", flush=True)
 
     def by_run(name):
@@ -1796,11 +2027,23 @@ def main(argv=None):
                and r["dtype"] == "float32"]
 
     def frames5(records):
-        """The T=5 encoder call's numbers, in-model, f32."""
-        rec, = [r for r in records if r["dtype"] == "float32"
-                and r["case"] == "frames5_encoder0"]
-        return {f"{k}_frames5_in_model": rec[k]
-                for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        """The T=5 encoder call's numbers, in-model, f32, and the PETR
+        family's calls (random and in-model), f32."""
+        out = {}
+        for case, suffix in (("frames5_encoder0", "frames5_in_model"),
+                             ("petr_encoder", "petr_encoder"),
+                             ("petr_heatmap", "petr_heatmap"),
+                             ("pose_decoder_k17", "pose_decoder_k17"),
+                             ("pose_decoder_k14", "pose_decoder_k14"),
+                             ("petr_encoder0", "petr_encoder_in_model"),
+                             ("petr_pose_decoder0",
+                              "petr_pose_decoder_in_model")):
+            recs = [r for r in records if r["dtype"] == "float32"
+                    and r["case"] == case]
+            if recs:
+                out.update({f"{k}_{suffix}": recs[0][k] for k in
+                            ("ms", "plain_ms", "bound_ms", "bound_by")})
+        return out
     print(json.dumps({"kernels": [
         kernel_record("msda_fwd", fwd,
                       runs["flagship_train_f32"]["msda_fwd"],

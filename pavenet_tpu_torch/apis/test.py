@@ -153,25 +153,39 @@ def gather_detections(detections: List[dict]) -> List[dict]:
 
 
 def evaluate_dataset(dataset, detections: List[dict],
+                     metric: str = "keypoints",
                      max_dets: int = 30) -> "OrderedDict":
-    """Keypoint metrics of ``detections`` on ``dataset``: COCO OKS AP as
-    ``coco/...``; for PoseTrack the per-joint AP as ``posetrack/...``, and
-    MOTA, MOTP, precision and recall beside it when every detection
-    carries a ``track_id`` (from a tracker outside the model). (The port
-    has no dataset of the CrowdPose protocol yet.)"""
-    from ..core.eval.coco_keypoint_eval import COCOKeypointEval
+    """Keypoint metrics of ``detections`` on ``dataset`` (``metric``
+    'keypoints', the only one of a pose model): COCO OKS AP as
+    ``coco/...``; for CrowdPose its protocol alone, as
+    ``keypoints_AP``, ``keypoints_AP(E)``, ``keypoints_AP(M)``,
+    ``keypoints_AP(H)`` and the rest; for PoseTrack the per-joint AP as
+    ``posetrack/...``, and MOTA, MOTP, precision and recall beside it when
+    every detection carries a ``track_id`` (from a tracker outside the
+    model)."""
+    from ..core.eval.coco_keypoint_eval import (COCOKeypointEval,
+                                                CrowdPoseKeypointEval)
     from ..core.eval.posetrack_eval import (evaluate_posetrack_ap,
                                             frames_from_coco)
     from ..models.losses.oks_loss import OKS_SIGMAS
 
+    if metric != "keypoints":
+        raise ValueError(f"metric {metric!r}: a pose model is evaluated "
+                         "by 'keypoints'")
     results = OrderedDict()
+    protocol = getattr(dataset, "EVAL_PROTOCOL", "coco")
     if detections:
-        coco = COCOKeypointEval(
-            dataset.coco, dataset.coco.load_res(detections),
-            sigmas=OKS_SIGMAS.get(getattr(dataset, "NUM_KEYPOINTS", 17)),
-            max_dets=max_dets).evaluate()
+        dt = dataset.coco.load_res(detections)
+        sigmas = OKS_SIGMAS.get(getattr(dataset, "NUM_KEYPOINTS", 17))
+        if protocol == "crowdpose":
+            crowd = CrowdPoseKeypointEval(dataset.coco, dt,
+                                          sigmas=sigmas).evaluate()
+            results.update({f"keypoints_{k}": v for k, v in crowd.items()})
+            return results
+        coco = COCOKeypointEval(dataset.coco, dt, sigmas=sigmas,
+                                max_dets=max_dets).evaluate()
         results.update({f"coco/{k}": v for k, v in coco.items()})
-    if getattr(dataset, "EVAL_PROTOCOL", "coco") == "posetrack":
+    if protocol == "posetrack":
         frames = frames_from_coco(dataset.coco, detections,
                                   max_dets=max_dets)
         pt = evaluate_posetrack_ap(frames)

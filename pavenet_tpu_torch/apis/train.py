@@ -25,7 +25,7 @@ set_to_zero})))``. Its semantics, kept here:
   ``ema_decay``).
 
 A batch is a ``dummy_clip_batch`` or a ``datasets/loader.py::ClipLoader``
-batch: only the keys the model reads go to the device (``MODEL_KEYS``), and
+batch: only the keys the model reads go to the device (``feed_keys``), and
 a uint8 image is normalised there (``apis/prep.py``, with the mean and std
 of the config's ``train_pipeline_kwargs``). ``TrainState.state_dict``
 holds the whole run (model, optimizer, counts, accumulated gradient, EMA,
@@ -46,7 +46,8 @@ from ..models.layers.transformer import Dropout
 from .inference import build_model
 from .prep import IMG_NORM_MEAN, IMG_NORM_STD, device_prep
 
-# the batch keys the model reads, in training and in serving
+# the batch keys the model reads, in training and in serving; a model with
+# PETR's heatmap loss reads ``gt_bboxes`` too (``feed_keys``)
 MODEL_KEYS = ("img", "img_shape", "scale_factor", "gt_keypoints",
               "gt_areas", "gt_valid")
 
@@ -302,11 +303,19 @@ def accumulate(state: TrainState):
         apply_update(state)
 
 
+def feed_keys(model: VideoPoseDetector) -> tuple:
+    """The batch keys ``model`` reads: ``MODEL_KEYS``, and ``gt_bboxes``
+    where its heatmap loss takes the radius from them."""
+    heatmap = model.head.with_heatmap and model.loss_hm_weight > 0
+    return MODEL_KEYS + (("gt_bboxes",) if heatmap else ())
+
+
 def model_feed(batch: Mapping, device, img_norm=(IMG_NORM_MEAN,
-                                                 IMG_NORM_STD)) -> dict:
-    """The keys of ``batch`` that the model reads, on ``device``, a uint8
+                                                 IMG_NORM_STD),
+               keys=MODEL_KEYS) -> dict:
+    """The ``keys`` of ``batch`` (those it has), on ``device``, a uint8
     image normalised there."""
-    return device_prep(to_device({k: batch[k] for k in MODEL_KEYS
+    return device_prep(to_device({k: batch[k] for k in keys
                                   if k in batch}, device), img_norm)
 
 
@@ -326,7 +335,8 @@ def train_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
     model = state.model
     model.train()
     losses = model.forward_train(model_feed(
-        batch, next(model.parameters()).device, state.img_norm))
+        batch, next(model.parameters()).device, state.img_norm,
+        feed_keys(model)))
     losses["loss"].backward()
     accumulate(state)
     update_ema(state)

@@ -1,6 +1,7 @@
 from .builder import build_detector
 from .detectors import VideoPoseDetector
-from .zoo import dummy_clip_batch, pavenet_r50_frames3
+from .zoo import (dummy_clip_batch, pavenet_r50_frames3, petr_r50_coco,
+                  petr_swinl_coco)
 
 __all__ = ["build_detector", "VideoPoseDetector", "dummy_clip_batch",
-           "pavenet_r50_frames3"]
+           "pavenet_r50_frames3", "petr_r50_coco", "petr_swinl_coco"]

@@ -1,3 +1,4 @@
+from .hrnet import HRNet
 from .resnet import ResNet
 
-__all__ = ["ResNet"]
+__all__ = ["HRNet", "ResNet"]

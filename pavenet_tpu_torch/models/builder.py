@@ -1,7 +1,14 @@
-"""Config dict -> detector (as ``pavenet_tpu/models/builder.py``, the
-VideoPoseV1 and VideoPoseV2 paths with RLE losses, a ResNet backbone with
-frozen or trainable BatchNorm or a Swin Transformer, and the activation
-dtype)."""
+"""Config dict -> detector (as ``pavenet_tpu/models/builder.py``: the
+VideoPoseV1, VideoPoseV2 and PETR paths, a ResNet backbone with frozen or
+trainable BatchNorm, a Swin Transformer or an HRNet, and the activation
+dtype).
+
+The PETR mapping follows the JAX builder's: a ``PETRHead`` defaults to
+T=1, K=17 and L1 keypoint losses, takes its decoder queries from the
+learned embedding alone and detaches the reference points between decoder
+layers; ``with_heatmap`` follows the ``loss_hm`` weight; rescoring and
+OKS-NMS follow ``test_cfg`` (default: on for the video head, off for
+PETR's)."""
 from __future__ import annotations
 
 import torch
@@ -28,7 +35,8 @@ def _type_name(cfg, default=None):
 
 def _backbone_kwargs(backbone: dict) -> dict:
     """A reference backbone config as detector arguments (ResNet, Swin
-    Transformer; HRNet is not ported yet)."""
+    Transformer, HRNet: its width from ``extra.stage4.num_channels``, the
+    neck on branches 1-3)."""
     btype = _type_name(backbone, "ResNet")
     out_indices = tuple(backbone.get("out_indices", (1, 2, 3)))
     if btype == "ResNet":
@@ -45,7 +53,10 @@ def _backbone_kwargs(backbone: dict) -> dict:
                         backbone.get("num_heads", (6, 12, 24, 48))),
                     swin_window_size=backbone.get("window_size", 7))
     if btype == "HRNet":
-        raise KeyError("backbone 'HRNet' is not ported yet")
+        stage4 = backbone.get("extra", {}).get("stage4", {})
+        return dict(backbone_type="hrnet",
+                    hrnet_width=stage4.get("num_channels", (48,))[0],
+                    backbone_out_indices=(1, 2, 3))
     raise KeyError(f"unsupported backbone {btype!r}")
 
 
@@ -55,49 +66,48 @@ def _loss_weight(head, key, default):
 
 def build_detector(cfg: dict, impl: str = "auto",
                    dtype: torch.dtype = torch.float32) -> VideoPoseDetector:
-    """Build the video pose detector from a reference-style model config,
-    in activation dtype ``dtype`` (see ``config.resolve_act_dtype``).
+    """Build the pose detector from a reference-style model config, in
+    activation dtype ``dtype`` (see ``config.resolve_act_dtype``).
 
     ``encoder.mode`` is 'deformable' (the default) or 'windowed';
     VideoPoseV2 trains with backbone and neck frozen. Raises on what the
-    port does not have yet: another detector, backbone or head, another
-    encoder mode, a keypoint loss other than RLE, and OKS or heatmap losses
-    with a weight above 0. The neck takes its input widths from the
-    backbone.
+    port does not have: another detector (SOIT, DK-DETR, InsPose), backbone
+    or head, another encoder mode, and a keypoint loss other than RLE and
+    L1. The neck takes its input widths from the backbone.
     """
     det_type = _type_name(cfg)
-    if det_type not in ("VideoPoseV1", "VideoPoseV2"):
+    if det_type not in ("VideoPoseV1", "VideoPoseV2", "PETR"):
         raise KeyError(f"unsupported detector type {det_type!r} (the port "
-                       "has VideoPoseV1 and VideoPoseV2)")
+                       "has VideoPoseV1, VideoPoseV2 and PETR)")
     backbone = _backbone_kwargs(cfg.get("backbone", {}))
     head = cfg.get("bbox_head", {})
-    head_type = _type_name(head, "VideoPoseHeadMulFrames")
-    if head_type != "VideoPoseHeadMulFrames":
+    head_type = _type_name(head, "PETRHead" if det_type == "PETR"
+                           else "VideoPoseHeadMulFrames")
+    if head_type not in ("VideoPoseHeadMulFrames", "PETRHead"):
         raise KeyError(f"unsupported head type {head_type!r}")
+    is_petr = head_type == "PETRHead"
     transformer = head.get("transformer", {})
     encoder = transformer.get("encoder", {})
     encoder_mode = encoder.get("mode", "deformable")
     if encoder_mode not in ("deformable", "windowed"):
         raise KeyError(f"unsupported encoder mode {encoder_mode!r}")
-    if _type_name(head.get("loss_kpt"), "RLELoss") != "RLELoss":
-        raise KeyError(f"unsupported loss_kpt {head['loss_kpt']['type']!r} "
-                       "(the port has RLELoss)")
-    for key in ("loss_oks", "loss_oks_refine", "loss_hm"):
-        if _loss_weight(head, key, 0.0) > 0:
-            raise KeyError(f"{key} with a weight above 0 is not ported")
+    kpt_type = _type_name(head.get("loss_kpt"),
+                          "L1Loss" if is_petr else "RLELoss")
+    kpt_loss = {"RLELoss": "rle", "L1Loss": "l1"}.get(kpt_type)
+    if kpt_loss is None:
+        raise KeyError(f"unsupported loss_kpt {kpt_type!r} (the port has "
+                       "RLELoss and L1Loss)")
+    loss_hm_weight = _loss_weight(head, "loss_hm", 0.0)
     enc_layers = encoder.get("transformerlayers", {})
     test_cfg = cfg.get("test_cfg") or {}
-    if not (test_cfg.get("with_rescoring", True)
-            and test_cfg.get("with_nms", True)):
-        raise KeyError("the port always rescores and runs OKS-NMS")
     assigner = (cfg.get("train_cfg") or {}).get("assigner", {})
 
     def cost_weight(name, default):
         return assigner.get(name, {}).get("weight", default)
 
     return VideoPoseDetector(
-        num_frames=head.get("num_frames", 3),
-        num_keypoints=head.get("num_keypoints", 15),
+        num_frames=head.get("num_frames", 1 if is_petr else 3),
+        num_keypoints=head.get("num_keypoints", 17 if is_petr else 15),
         num_classes=head.get("num_classes", 1),
         num_query=head.get("num_query", 300),
         **backbone,
@@ -114,6 +124,14 @@ def build_detector(cfg: dict, impl: str = "auto",
         loss_kpt_weight=_loss_weight(head, "loss_kpt", 1.0),
         loss_kpt_rpn_weight=_loss_weight(head, "loss_kpt_rpn", 1.0),
         loss_kpt_refine_weight=_loss_weight(head, "loss_kpt_refine", 1.0),
+        kpt_loss=kpt_loss,
+        loss_oks_weight=_loss_weight(head, "loss_oks", 0.0),
+        loss_oks_refine_weight=_loss_weight(head, "loss_oks_refine", 0.0),
+        loss_hm_weight=loss_hm_weight, with_heatmap=loss_hm_weight > 0,
+        query_from_encoder_token=not is_petr,
+        detach_decoder_refs=is_petr,
+        with_rescoring=test_cfg.get("with_rescoring", not is_petr),
+        with_nms=test_cfg.get("with_nms", not is_petr),
         cls_cost_weight=cost_weight("cls_cost", 2.0),
         kpt_cost_weight=cost_weight("kpt_cost", 70.0),
         oks_cost_weight=cost_weight("oks_cost", 7.0),

@@ -1,12 +1,24 @@
 """PAVE-Net video pose head (as ``pavenet_tpu/models/dense_heads/
 videopose_head.py``): deformable or windowed encoder, two-stage top-k
 proposals, per-frame pose decoder, the joint (refine) decoder and the three
-RealNVP flows of the RLE losses.
+RealNVP flows of the RLE losses. With ``num_frames=1`` and PETR's options it
+is the PETR head:
 
-Batch-first with an explicit frame axis ``(B, T, ...)``. The PETR heatmap
-branch (weight 0 in every video config) is not ported. Every layer computes
-in ``dtype`` (``layers/dtype.py``); the embeddings stay float32 and promote
-what they are added to, as in the JAX head.
+- ``with_heatmap``: a one-layer, one-level encoder over the current frame's
+  level-0 memory and ``fc_hm``, run only where ``forward`` is asked for the
+  heatmap (the train step); it runs without position embedding, as the
+  reference's does;
+- ``query_from_encoder_token`` False: the decoder's queries are the content
+  half of ``query_embedding`` alone (the top-k still picks the reference
+  points);
+- ``detach_decoder_refs``: each pose and joint decoder layer takes the
+  previous layer's reference points detached; the layer outputs keep
+  theirs;
+- ``rle_flows`` False (L1 keypoint losses): no RealNVP flows.
+
+Batch-first with an explicit frame axis ``(B, T, ...)``. Every layer
+computes in ``dtype`` (``layers/dtype.py``); the embeddings stay float32
+and promote what they are added to, as in the JAX head.
 """
 from __future__ import annotations
 
@@ -94,7 +106,10 @@ class VideoPoseHead(nn.Module):
                  num_decoder_layers: int = 3, num_refine_layers: int = 2,
                  encoder_num_points: int = 4, refine_num_points: int = 4,
                  feedforward_channels: int = 1024, num_kpt_fcs: int = 2,
-                 dropout: float = 0.1, encoder_mode: str = "deformable",
+                 dropout: float = 0.1, with_heatmap: bool = False,
+                 query_from_encoder_token: bool = True,
+                 detach_decoder_refs: bool = False, rle_flows: bool = True,
+                 encoder_mode: str = "deformable",
                  impl: str = "auto", dtype: torch.dtype = torch.float32):
         super().__init__()
         if encoder_mode not in ("deformable", "windowed"):
@@ -105,6 +120,9 @@ class VideoPoseHead(nn.Module):
         self.num_levels = num_levels
         self.num_decoder_layers = num_decoder_layers
         self.num_refine_layers = num_refine_layers
+        self.with_heatmap = with_heatmap
+        self.query_from_encoder_token = query_from_encoder_token
+        self.detach_decoder_refs = detach_decoder_refs
         num_pred = num_decoder_layers + 1   # + encoder proposal head
 
         add = self.add_module
@@ -163,10 +181,16 @@ class VideoPoseHead(nn.Module):
             for f in range(T):
                 add(f"refine_kpt_branch_f{f}_l{i}", MLP(
                     C, (C,) * num_kpt_fcs, 2, zero_init_last=True, dtype=d))
-        # RLE flows: encoder proposals, pose decoder, joint decoder
-        self.enc_flow = RealNVP(dtype=d)
-        self.dec_flow = RealNVP(dtype=d)
-        self.flow = RealNVP(dtype=d)
+        if with_heatmap:     # PETR's heatmap branch (train step only)
+            self.fc_hm = Linear(C, K, dtype=d)
+            self.hm_encoder_layer = EncoderLayer(
+                C, num_heads, 1, encoder_num_points, feedforward_channels,
+                dropout, impl, d)
+        # RLE flows: encoder proposals, pose decoder, joint decoder (none
+        # for L1 keypoint losses, as the JAX tree has none)
+        self.enc_flow, self.dec_flow, self.flow = (
+            (RealNVP(dtype=d), RealNVP(dtype=d), RealNVP(dtype=d))
+            if rle_flows else (None, None, None))
 
     def init_fixed_(self, generator):
         for p in (self.level_embeds, self.query_embedding,
@@ -175,6 +199,8 @@ class VideoPoseHead(nn.Module):
         for i in range(self.num_decoder_layers + 1):
             nn.init.constant_(getattr(self, f"cls_branch{i}").bias,
                               bias_init_with_prob(0.01))
+        if self.with_heatmap:
+            nn.init.constant_(self.fc_hm.bias, bias_init_with_prob(0.1))
 
     def _m(self, name, *idx):
         return getattr(self, name.format(*idx))
@@ -262,14 +288,32 @@ class VideoPoseHead(nn.Module):
         return dict(memory=x.view(B, T, N, C), mask_flatten=mask,
                     spatial_shapes=spatial_shapes)
 
+    def forward_heatmap(self, now_memory, mask, valid_ratios,
+                        spatial_shapes: Shapes):
+        """PETR's heatmap branch: ``hm_pred`` (B, h0, w0, K) logits of the
+        current frame's level 0, from one encoder layer over that level
+        alone, with a zero position embedding (the reference passes its
+        embedding under a misspelt keyword, so it never arrives)."""
+        B, _, C = now_memory.shape
+        h0, w0 = spatial_shapes[0]
+        n0 = h0 * w0
+        ref = self.encoder_reference_points(spatial_shapes, valid_ratios)
+        x = now_memory[:, :n0]
+        hm = self.hm_encoder_layer(
+            x, torch.zeros((B, n0, C), dtype=torch.float32, device=x.device),
+            ref[:, :n0, :1].contiguous(), (spatial_shapes[0],), mask[:, :n0])
+        return self.fc_hm(hm).view(B, h0, w0, self.num_keypoints)
+
     def forward(self, mlvl_feats: Sequence[torch.Tensor],
                 mlvl_masks: Sequence[torch.Tensor], valid_ratios,
-                topk_idx=None):
+                topk_idx=None, return_heatmap: bool = False):
         """Encoder -> two-stage proposals -> pose decoder (arguments as
         ``forward_encoder``). ``topk_idx`` (B, num_query), if given,
         replaces the top-k selection of the proposals (a check's hook: two
         runs whose proposal scores nearly tie can then be compared past
-        the selection); the selection made is returned as ``topk_idx``."""
+        the selection); the selection made is returned as ``topk_idx``.
+        ``return_heatmap`` (with ``with_heatmap``) adds ``hm_pred`` and
+        its level-0 padding mask ``hm_mask``."""
         enc = self.forward_encoder(mlvl_feats, mlvl_masks, valid_ratios)
         memory, mask = enc["memory"], enc["mask_flatten"]
         spatial_shapes: Shapes = enc["spatial_shapes"]
@@ -277,6 +321,11 @@ class VideoPoseHead(nn.Module):
         K, NQ = self.num_keypoints, self.num_query
         now = T // 2
         now_memory = memory[:, now]
+        hm_outs = {}
+        if self.with_heatmap and return_heatmap:
+            hm_outs = dict(hm_pred=self.forward_heatmap(
+                now_memory, mask, valid_ratios, spatial_shapes),
+                hm_mask=mlvl_masks[0])
 
         # --- two-stage proposals from the current frame ---
         level_wh = torch.tensor([[[w, h] for h, w in spatial_shapes]],
@@ -308,7 +357,8 @@ class VideoPoseHead(nn.Module):
 
         # --- pose decoder ---
         query_pos, query_content = self.query_embedding.split(C, -1)
-        query = tgt + query_content[None]
+        query = (tgt + query_content[None] if self.query_from_encoder_token
+                 else query_content[None].expand(B, NQ, C))
         query_pos = query_pos[None].expand(B, NQ, C)
         ref = topk_kpts_unact.sigmoid()[:, None].expand(B, T, NQ, 2 * K)
         init_reference = ref
@@ -339,6 +389,8 @@ class VideoPoseHead(nn.Module):
             ref = (torch.stack(deltas, 1) + inverse_sigmoid(ref)).sigmoid()
             hs_list.append(query)
             refs_list.append(ref)
+            if self.detach_decoder_refs:   # the next layer's input only
+                ref = ref.detach()
 
         L_ = self.num_decoder_layers
         return dict(
@@ -357,6 +409,7 @@ class VideoPoseHead(nn.Module):
             memory=memory,                        # (B, T, N, C)
             mask_flatten=mask,                    # (B, N)
             spatial_shapes=spatial_shapes,
+            **hm_outs,
         )
 
     def forward_refine(self, memory, mask_flatten, valid_ratios, ref_poses,
@@ -401,5 +454,7 @@ class VideoPoseHead(nn.Module):
             kpts_out.append(ref[:, now])
             scores_out.append((1.0 - sigma).mean(-1, keepdim=True))
             sigmas_out.append(sigma)
+            if self.detach_decoder_refs:
+                ref = ref.detach()
         return (torch.stack(kpts_out), torch.stack(scores_out),
                 torch.stack(sigmas_out))

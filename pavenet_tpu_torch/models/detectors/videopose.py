@@ -1,9 +1,13 @@
 """PAVE-Net detector (as ``pavenet_tpu/models/detectors/videopose.py``):
-backbone (ResNet or Swin) + neck + video pose head, with the train step's
-losses (``forward_train``: Hungarian matching, focal and RLE losses), the
-test path's Poseur rescoring and OKS-NMS (``forward_test``), and flip and
+backbone (ResNet, Swin or HRNet) + neck + video pose head, with the train
+step's losses (``forward_train``: Hungarian matching, focal and RLE or L1
+keypoint losses, and PETR's OKS and heatmap losses where weighted), the
+test path's Poseur rescoring and OKS-NMS (``forward_test``; PETR has
+neither: unit keypoint scores, every detection kept), and flip and
 multi-scale test-time augmentation (``forward_test_flip``,
 ``forward_test_aug``, ``merge_aug_detections``: box NMS over the union).
+With ``num_frames=1`` and the PETR options (``models/zoo.py::
+petr_r50_coco``) it is the single-frame PETR detector.
 
 Trainable BatchNorm (``norm_eval=False``) is in train mode in
 ``forward_train`` and in eval mode elsewhere, whatever ``nn.Module.training``
@@ -19,6 +23,8 @@ Batch dict (tensors on the model's device):
     gt_keypoints: (B, G, K, 3) xyv, unnormalised (train)
     gt_areas:     (B, G) float32 (train)
     gt_valid:     (B, G) bool (train)
+    gt_bboxes:    (B, G, 4) xyxy (train, optional: the heatmap target's
+                  radius; without it the visible keypoints' envelope)
 """
 from __future__ import annotations
 
@@ -28,11 +34,13 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
+from ..backbones.hrnet import HRNet
 from ..backbones.resnet import ResNet
 from ..backbones.swin import SwinTransformer
 from ..necks.channel_mapper import ChannelMapper
 from ..dense_heads.videopose_head import VideoPoseHead
-from ..losses import OKS_SIGMAS, rle_loss, sigmoid_focal_loss
+from ..losses import (OKS_SIGMAS, center_focal_loss, oks_loss, rle_loss,
+                      sigmoid_focal_loss)
 from ...core.assigner import (PoseTargets, build_pose_targets,
                               hungarian_assign, pose_match_cost)
 from ...ops.nms import box_nms_keep, oks_nms_keep
@@ -47,6 +55,63 @@ FLIP_PAIRS_BY_K = {
 # the test-time augmentation merge: box NMS at this IoU, every score kept
 # (the reference's ``aug_test`` with ``multiclass_nms``)
 TTA_NMS_IOU = 0.7
+# the heatmap target's stride: level 0 of the neck
+HM_STRIDE = 8.0
+
+
+def gaussian_radius(height, width, min_overlap: float = 0.7):
+    """CornerNet's Gaussian radius, divided by 2 where CornerNet divides by
+    2a, as the reference does."""
+    def safe_sqrt(x):
+        return torch.sqrt(x.clamp(min=0.0))
+    b1 = height + width
+    c1 = width * height * (1 - min_overlap) / (1 + min_overlap)
+    r1 = (b1 + safe_sqrt(b1 ** 2 - 4 * c1)) / 2
+    b2 = 2 * (height + width)
+    c2 = (1 - min_overlap) * width * height
+    r2 = (b2 + safe_sqrt(b2 ** 2 - 16 * c2)) / 2
+    b3 = -2 * min_overlap * (height + width)
+    c3 = (min_overlap - 1) * width * height
+    r3 = (b3 + safe_sqrt(b3 ** 2 - 16 * min_overlap * c3)) / 2
+    return torch.minimum(torch.minimum(r1, r2), r3)
+
+
+def heatmap_target(batch, shape) -> torch.Tensor:
+    """PETR's level-0 keypoint heatmaps (B, h0, w0, K), float32: for each
+    visible keypoint of a valid GT slot a Gaussian at its stride-8 cell,
+    with the radius from the slot's ``gt_bboxes`` (or the visible
+    keypoints' envelope) at stride 8 (``gaussian_radius`` at overlap 0.9,
+    floored, clipped to [0, 3]) and sigma (2r + 1) / 6, zero outside the
+    radius; the slots combined by an element-wise max. Centres are exactly
+    1."""
+    B, h0, w0, K = shape
+    kpts = batch["gt_keypoints"].float()                   # (B, G, K, 3)
+    vis = kpts[..., 2] > 0
+    valid = batch["gt_valid"][:, :, None] & vis            # (B, G, K)
+    if "gt_bboxes" in batch:
+        x1, y1, x2, y2 = batch["gt_bboxes"].float().unbind(-1)
+    else:
+        big = 1e9
+        x1 = torch.where(vis, kpts[..., 0], big).amin(-1)
+        y1 = torch.where(vis, kpts[..., 1], big).amin(-1)
+        x2 = torch.where(vis, kpts[..., 0], -big).amax(-1)
+        y2 = torch.where(vis, kpts[..., 1], -big).amax(-1)
+    gw = ((x2 - x1) / HM_STRIDE).clamp(min=0.0)
+    gh = ((y2 - y1) / HM_STRIDE).clamp(min=0.0)
+    radius = gaussian_radius(gh, gw, 0.9).floor().clamp(0.0, 3.0)  # (B, G)
+    sigma = (2 * radius + 1) / 6.0
+    cx = (kpts[..., 0] / HM_STRIDE).floor()                 # (B, G, K)
+    cy = (kpts[..., 1] / HM_STRIDE).floor()
+    dev = kpts.device
+    dy = torch.arange(h0, dtype=torch.float32, device=dev) - cy[..., None]
+    dx = torch.arange(w0, dtype=torch.float32, device=dev) - cx[..., None]
+    r = radius[:, :, None, None, None]
+    s2 = 2 * sigma[:, :, None, None, None] ** 2 + 1e-12
+    d2 = dy[..., :, None] ** 2 + dx[..., None, :] ** 2      # (B,G,K,h0,w0)
+    inside = ((dy.abs()[..., :, None] <= r) & (dx.abs()[..., None, :] <= r)
+              & valid[..., None, None])
+    gsn = torch.where(inside, torch.exp(-d2 / s2), torch.zeros_like(d2))
+    return gsn.amax(1).permute(0, 2, 3, 1)
 
 
 def lecun_normal_(tensor: torch.Tensor, generator: torch.Generator):
@@ -60,7 +125,13 @@ def lecun_normal_(tensor: torch.Tensor, generator: torch.Generator):
 
 class VideoPoseDetector(nn.Module):
     """Flagship video model (T=3, K=15, R50); ``backbone_type`` 'swin'
-    takes a Swin Transformer (Swin-L by default) in place of the ResNet."""
+    takes a Swin Transformer (Swin-L by default), 'hrnet' an HRNet
+    (``hrnet_width`` 48 or 32), in place of the ResNet. ``kpt_loss`` is
+    'rle' (video) or 'l1' (PETR); ``loss_oks_weight``,
+    ``loss_oks_refine_weight`` and ``loss_hm_weight`` above 0 add PETR's
+    OKS and heatmap losses (the heatmap needs ``with_heatmap``);
+    ``with_rescoring`` and ``with_nms`` pick the test path's Poseur
+    rescoring and OKS-NMS."""
 
     def __init__(self, num_frames: int = 3, num_keypoints: int = 15,
                  num_classes: int = 1, num_query: int = 300,
@@ -69,7 +140,7 @@ class VideoPoseDetector(nn.Module):
                  swin_embed_dims: int = 192,
                  swin_depths: Tuple[int, ...] = (2, 2, 18, 2),
                  swin_num_heads: Tuple[int, ...] = (6, 12, 24, 48),
-                 swin_window_size: int = 7,
+                 swin_window_size: int = 7, hrnet_width: int = 48,
                  embed_dims: int = 256, num_encoder_layers: int = 6,
                  num_decoder_layers: int = 3, num_refine_layers: int = 2,
                  feedforward_channels: int = 1024, dropout: float = 0.1,
@@ -78,7 +149,13 @@ class VideoPoseDetector(nn.Module):
                  loss_kpt_rpn_weight: float = 1.0,
                  loss_kpt_refine_weight: float = 1.0,
                  cls_cost_weight: float = 2.0, kpt_cost_weight: float = 70.0,
-                 oks_cost_weight: float = 7.0,
+                 oks_cost_weight: float = 7.0, kpt_loss: str = "rle",
+                 loss_oks_weight: float = 0.0,
+                 loss_oks_refine_weight: float = 0.0,
+                 loss_hm_weight: float = 0.0, with_heatmap: bool = False,
+                 with_rescoring: bool = True, with_nms: bool = True,
+                 query_from_encoder_token: bool = True,
+                 detach_decoder_refs: bool = False,
                  encoder_mode: str = "deformable", impl: str = "auto",
                  norm_eval: bool = True, freeze_backbone_neck: bool = False,
                  dtype: torch.dtype = torch.float32):
@@ -86,6 +163,12 @@ class VideoPoseDetector(nn.Module):
         self.num_frames, self.num_keypoints = num_frames, num_keypoints
         self.num_classes = num_classes
         self.max_per_img = max_per_img
+        if kpt_loss not in ("rle", "l1"):
+            raise ValueError(f"unknown kpt_loss {kpt_loss!r}")
+        self.kpt_loss = kpt_loss
+        self.with_rescoring, self.with_nms = with_rescoring, with_nms
+        self.backbone_type = backbone_type
+        self.backbone_out_indices = tuple(backbone_out_indices)
         # read by the optimizer's labels
         self.frozen_stages, self.norm_eval = frozen_stages, norm_eval
         self.freeze_backbone_neck = freeze_backbone_neck
@@ -94,6 +177,9 @@ class VideoPoseDetector(nn.Module):
         self.loss_kpt_weight = loss_kpt_weight
         self.loss_kpt_rpn_weight = loss_kpt_rpn_weight
         self.loss_kpt_refine_weight = loss_kpt_refine_weight
+        self.loss_oks_weight = loss_oks_weight
+        self.loss_oks_refine_weight = loss_oks_refine_weight
+        self.loss_hm_weight = loss_hm_weight
         self.cost_weights = dict(cls_weight=cls_cost_weight,
                                  kpt_weight=kpt_cost_weight,
                                  oks_weight=oks_cost_weight)
@@ -102,13 +188,18 @@ class VideoPoseDetector(nn.Module):
                 swin_embed_dims, swin_depths, swin_num_heads,
                 swin_window_size, out_indices=backbone_out_indices,
                 dtype=dtype)
+        elif backbone_type == "hrnet":
+            self.backbone = HRNet(hrnet_width, dtype)
         elif backbone_type == "resnet":
             self.backbone = ResNet(backbone_depth, backbone_out_indices,
                                    norm_eval, frozen_stages, dtype)
         else:
             raise KeyError(f"unsupported backbone_type {backbone_type!r}")
-        self.neck = ChannelMapper(self.backbone.out_channels, embed_dims,
-                                  num_outs=4, dtype=dtype)
+        widths = self.backbone.out_channels
+        if backbone_type == "hrnet":     # the neck takes the chosen branches
+            widths = tuple(widths[i] for i in self.backbone_out_indices)
+        self.neck = ChannelMapper(widths, embed_dims, num_outs=4,
+                                  dtype=dtype)
         self.head = VideoPoseHead(
             num_classes=num_classes, num_frames=num_frames,
             num_keypoints=num_keypoints, num_query=num_query,
@@ -116,6 +207,10 @@ class VideoPoseDetector(nn.Module):
             num_decoder_layers=num_decoder_layers,
             num_refine_layers=num_refine_layers,
             feedforward_channels=feedforward_channels, dropout=dropout,
+            with_heatmap=with_heatmap,
+            query_from_encoder_token=query_from_encoder_token,
+            detach_decoder_refs=detach_decoder_refs,
+            rle_flows=kpt_loss == "rle",
             encoder_mode=encoder_mode, impl=impl, dtype=dtype)
         self.register_buffer("oks_sigmas",
                              torch.tensor(OKS_SIGMAS[num_keypoints]),
@@ -146,7 +241,10 @@ class VideoPoseDetector(nn.Module):
         in train mode."""
         B, T, H, W, _ = img.shape
         x = img.reshape(B * T, H, W, 3).permute(0, 3, 1, 2)
-        feats = self.neck(self.backbone(x, train))
+        x = self.backbone(x, train)
+        if self.backbone_type == "hrnet":
+            x = [x[i] for i in self.backbone_out_indices]
+        feats = self.neck(x)
         if self.freeze_backbone_neck:
             feats = [f.detach() for f in feats]
         return [f.view(B, T, *f.shape[1:]).permute(0, 1, 3, 4, 2)
@@ -179,12 +277,14 @@ class VideoPoseDetector(nn.Module):
         return feats, mlvl_masks, valid_ratios
 
     def forward_outputs(self, img, img_shape, train: bool = False,
-                        topk_idx=None):
+                        topk_idx=None, return_heatmap: bool = False):
         """The head's outputs (``train``: trainable BatchNorm in train
-        mode; ``topk_idx``: the head's selection hook)."""
+        mode; ``topk_idx``: the head's selection hook; ``return_heatmap``:
+        PETR's heatmap branch too)."""
         feats, mlvl_masks, valid_ratios = self._head_inputs(img, img_shape,
                                                             train)
-        outs = self.head(feats, mlvl_masks, valid_ratios, topk_idx)
+        outs = self.head(feats, mlvl_masks, valid_ratios, topk_idx,
+                         return_heatmap)
         outs["valid_ratios"] = valid_ratios
         return outs
 
@@ -241,37 +341,86 @@ class VideoPoseDetector(nn.Module):
             cls_scores.reshape(-1, self.num_classes),
             targets.labels.reshape(-1), avg_factor=avg) * self.loss_cls_weight
 
+    def _kpt(self, flow, pred, sigma, targets: PoseTargets, num_valid_kpt,
+             weight):
+        """The keypoint loss of matched (B, G, K, 2) predictions: RLE, or
+        L1 (mmdet ``L1Loss`` over the visible keypoints' count)."""
+        if self.kpt_loss == "rle":
+            return self._rle(flow, pred, sigma, targets, num_valid_kpt,
+                             weight)
+        return ((pred - targets.kpt_targets).abs()
+                * targets.kpt_weights).sum() / num_valid_kpt * weight
+
+    def _oks(self, pred, targets: PoseTargets, img_shape, weight):
+        """-log(OKS) of matched (B, G, K, 2) predictions in pixels, over
+        the GT slots with a visible keypoint, averaged by the positives."""
+        B, G, K = pred.shape[:3]
+        factor = img_shape.flip(-1).to(pred.dtype)[:, None, None, :]
+        pos_valid = targets.kpt_weights.sum((-1, -2)) > 0       # (B, G)
+        return oks_loss(
+            (pred * factor).reshape(B * G, -1),
+            (targets.kpt_targets * factor).reshape(B * G, -1),
+            targets.kpt_weights[..., 0].reshape(B * G, -1),
+            targets.area_targets.clamp(min=1e-6).reshape(B * G),
+            num_keypoints=K, weight=pos_valid.reshape(B * G).to(pred.dtype),
+            avg_factor=targets.num_pos.sum().clamp(min=1.0)) * weight
+
     def _set_losses(self, flow, cls_scores, kpt_preds, sigma_preds,
-                    targets: PoseTargets, kpt_weight):
+                    targets: PoseTargets, kpt_weight, oks_weight, img_shape):
+        """Focal, keypoint and (``oks_weight`` > 0) OKS losses of one
+        prediction set; the OKS loss is None where unweighted."""
         num_valid_kpt = targets.kpt_weights.sum().clamp(min=1.0)
+        pred = self._gather_pos(kpt_preds, targets)
+        sigma = (self._gather_pos(sigma_preds, targets)
+                 if self.kpt_loss == "rle" else None)
+        oks = (self._oks(pred, targets, img_shape, oks_weight)
+               if oks_weight > 0 else None)
         return (self._cls_loss(cls_scores, targets),
-                self._rle(flow, self._gather_pos(kpt_preds, targets),
-                          self._gather_pos(sigma_preds, targets), targets,
-                          num_valid_kpt, kpt_weight))
+                self._kpt(flow, pred, sigma, targets, num_valid_kpt,
+                          kpt_weight), oks)
+
+    def _heatmap_loss(self, hm_pred, hm_mask, batch):
+        """CornerNet's focal loss of the level-0 heatmap logits against
+        ``heatmap_target`` over the unpadded cells."""
+        pred = torch.sigmoid(hm_pred).clamp(1e-4, 1 - 1e-4)
+        return center_focal_loss(pred, heatmap_target(batch, hm_pred.shape),
+                                 mask=~hm_mask) * self.loss_hm_weight
 
     def forward_train(self, batch, topk_idx=None):
         """Loss dict of one batch, as the JAX ``forward_train``: per pose
-        decoder layer (prefix ``d{i}.``, the last layer unprefixed), the
-        encoder proposals over all N tokens (``enc_``), the joint decoder on
-        the last layer's matched poses (``d{r}.loss_kpt_refine``), and their
-        sum ``loss``. Trainable BatchNorm runs in train mode and updates its
+        decoder layer (prefix ``d{i}.``, the last layer unprefixed) the
+        focal, keypoint and weighted OKS losses, the encoder proposals over
+        all N tokens (``enc_``), the weighted heatmap loss (``loss_hm``),
+        the joint decoder on the last layer's matched poses
+        (``d{r}.loss_kpt_refine``, ``d{r}.loss_oks_refine``), and their sum
+        ``loss``. Trainable BatchNorm runs in train mode and updates its
         running statistics; ``topk_idx`` is the head's selection hook."""
+        with_hm = self.head.with_heatmap and self.loss_hm_weight > 0
         outs = self.forward_outputs(batch["img"], batch["img_shape"],
-                                    train=True, topk_idx=topk_idx)
+                                    train=True, topk_idx=topk_idx,
+                                    return_heatmap=with_hm)
         head = self.head
+        img_shape = batch["img_shape"]
         *dec_targets, enc_targets = self.match(outs, batch)
         losses = {}
         D = len(dec_targets)
         for d, targets in enumerate(dec_targets):
             prefix = "" if d == D - 1 else f"d{d}."
-            losses[prefix + "loss_cls"], losses[prefix + "loss_kpt"] = \
-                self._set_losses(head.dec_flow, outs["all_cls_scores"][d],
-                                 outs["all_kpt_preds"][d],
-                                 outs["all_sigma_preds"][d], targets,
-                                 self.loss_kpt_weight)
-        losses["enc_loss_cls"], losses["enc_loss_kpt"] = self._set_losses(
+            cls, kpt, oks = self._set_losses(
+                head.dec_flow, outs["all_cls_scores"][d],
+                outs["all_kpt_preds"][d], outs["all_sigma_preds"][d],
+                targets, self.loss_kpt_weight, self.loss_oks_weight,
+                img_shape)
+            losses[prefix + "loss_cls"], losses[prefix + "loss_kpt"] = cls, kpt
+            if oks is not None:
+                losses[prefix + "loss_oks"] = oks
+        losses["enc_loss_cls"], losses["enc_loss_kpt"], _ = self._set_losses(
             head.enc_flow, outs["enc_cls_scores"], outs["enc_kpt_preds"],
-            outs["enc_sigma_preds"], enc_targets, self.loss_kpt_rpn_weight)
+            outs["enc_sigma_preds"], enc_targets, self.loss_kpt_rpn_weight,
+            0.0, img_shape)
+        if with_hm:
+            losses["loss_hm"] = self._heatmap_loss(outs["hm_pred"],
+                                                   outs["hm_mask"], batch)
 
         # joint decoder on the matched poses of the last layer, detached
         last = dec_targets[-1]
@@ -285,19 +434,27 @@ class VideoPoseDetector(nn.Module):
             ref_poses.detach(), outs["spatial_shapes"])
         num_valid_kpt = last.kpt_weights.sum().clamp(min=1.0)
         for r in range(refine_kpts.shape[0]):
-            losses[f"d{r}.loss_kpt_refine"] = self._rle(
+            losses[f"d{r}.loss_kpt_refine"] = self._kpt(
                 head.flow, refine_kpts[r], refine_sigmas[r], last,
                 num_valid_kpt, self.loss_kpt_refine_weight)
+            if self.loss_oks_refine_weight > 0:
+                losses[f"d{r}.loss_oks_refine"] = self._oks(
+                    refine_kpts[r], last, img_shape,
+                    self.loss_oks_refine_weight)
         losses["loss"] = sum(losses.values())
         return losses
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def forward_test(self, batch, topk_idx=None, with_nms: bool = True):
+    def forward_test(self, batch, topk_idx=None, with_nms=None):
         """Padded detections per image, in the original image's pixels:
-        det_kpts (B, M, K, 3), det_bboxes (B, M, 5), det_labels (B, M),
-        keep (B, M) (OKS-NMS; all True without ``with_nms``). ``topk_idx``:
-        the head's selection hook, as in ``forward_outputs``."""
+        det_kpts (B, M, K, 3) (the third channel the Poseur keypoint
+        score, or 1 without ``with_rescoring``), det_bboxes (B, M, 5),
+        det_labels (B, M), keep (B, M) (OKS-NMS; all True without NMS).
+        ``with_nms`` None follows the model's; ``topk_idx``: the head's
+        selection hook, as in ``forward_outputs``."""
+        if with_nms is None:
+            with_nms = self.with_nms
         outs = self.forward_outputs(batch["img"], batch["img_shape"],
                                     topk_idx=topk_idx)
         B = batch["img"].shape[0]
@@ -330,11 +487,14 @@ class VideoPoseDetector(nn.Module):
              det_kpts[..., 0].amax(-1), det_kpts[..., 1].amax(-1), scores],
             -1)
 
-        # Poseur rescoring: p_x = 0.2, * 0.7, power 5
-        p = 1.0 - torch.exp(-(0.2 / det_sigmas.clamp(min=1e-6)))
-        p = (p[..., 0] * p[..., 1])[..., None] * 0.7              # (B,M,K,1)
-        det_kpts = det_kpts * p ** 5 / (p ** 5 + 1e-10)
-        det_kpts = torch.cat([det_kpts, scores[:, :, None, None] * p], -1)
+        if self.with_rescoring:   # Poseur: p_x = 0.2, * 0.7, power 5
+            p = 1.0 - torch.exp(-(0.2 / det_sigmas.clamp(min=1e-6)))
+            p = (p[..., 0] * p[..., 1])[..., None] * 0.7          # (B,M,K,1)
+            det_kpts = det_kpts * p ** 5 / (p ** 5 + 1e-10)
+            kpt_scores = scores[:, :, None, None] * p
+        else:                     # PETR: unit keypoint scores
+            kpt_scores = torch.ones_like(det_kpts[..., :1])
+        det_kpts = torch.cat([det_kpts, kpt_scores], -1)
 
         if with_nms:
             areas = ((det_kpts[..., 0].amax(-1) - det_kpts[..., 0].amin(-1))

@@ -19,6 +19,33 @@ def pavenet_r50_frames3(**overrides) -> VideoPoseDetector:
     return VideoPoseDetector(**kwargs)
 
 
+# PETR's loss recipe and head options
+# (``configs/petr/petr_r50_16x2_100e_coco.py``)
+PETR_OPTIONS = dict(
+    num_frames=1, num_keypoints=17, num_query=300, embed_dims=256,
+    num_encoder_layers=6, num_decoder_layers=3, num_refine_layers=2,
+    max_per_img=40, kpt_loss="l1", with_rescoring=False, with_heatmap=True,
+    with_nms=False, query_from_encoder_token=False, detach_decoder_refs=True,
+    loss_cls_weight=2.0, loss_kpt_weight=70.0, loss_kpt_rpn_weight=70.0,
+    loss_kpt_refine_weight=80.0, loss_oks_weight=2.0,
+    loss_oks_refine_weight=3.0, loss_hm_weight=4.0)
+
+
+def petr_r50_coco(**overrides) -> VideoPoseDetector:
+    """PETR on COCO: the T=1 case of the same architecture with an R50,
+    K=17, 300 queries, max_per_img 40, L1 + OKS + heatmap losses, no
+    rescoring and no NMS."""
+    return VideoPoseDetector(**{**PETR_OPTIONS, "backbone_depth": 50,
+                                **overrides})
+
+
+def petr_swinl_coco(**overrides) -> VideoPoseDetector:
+    """PETR with a Swin-L backbone
+    (``configs/petr/petr_swin-l-p4-w7-224-22kto1k_16x1_100e_coco.py``)."""
+    return VideoPoseDetector(**{**PETR_OPTIONS, "backbone_type": "swin",
+                                **overrides})
+
+
 def dummy_clip_batch(rng: np.random.RandomState, batch_size: int = 1,
                      num_frames: int = 3, height: int = 800,
                      width: int = 1344, num_keypoints: int = 15,

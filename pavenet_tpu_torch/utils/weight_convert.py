@@ -19,8 +19,11 @@ renamed and laid out by fixed rules:
 
 The fused per-frame ``sampling_offsets``/``attention_weights`` Dense layers
 stay one Linear, output order unchanged. The RealNVP flows (``enc_flow``,
-``dec_flow``, ``flow``) convert like any Dense tree; the PETR heatmap
-branch ``fc_hm``, which the port does not have, is skipped.
+``dec_flow``, ``flow``), PETR's heatmap branch (``head.fc_hm``,
+``head.hm_encoder_layer``) and HRNet's modules (``stem1/conv``,
+``stage{s}_module{m}/branch{b}_block{k}``, ``fuse{i}_{j}_conv/bn``,
+``fuse{i}_{j}_down{t}``, ``transition{s}_{b}``) convert like any other
+tree.
 """
 from __future__ import annotations
 
@@ -30,9 +33,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-TRAIN_ONLY = frozenset({"fc_hm"})
-# subtrees a JAX init makes only in train mode
+# subtrees a JAX init makes only in train mode: the flows, and PETR's
+# heatmap branch
 FLOWS = ("enc_flow", "dec_flow", "flow")
+TRAIN_ONLY = FLOWS + ("fc_hm", "hm_encoder_layer")
 FREE_PARAMS = frozenset({"level_embeds", "query_embedding",
                          "refine_query_embedding",
                          "relative_position_bias_table"})
@@ -63,8 +67,6 @@ def _param(path, leaf: np.ndarray):
 
 def _walk(tree: Mapping, path=()):
     for k, v in tree.items():
-        if k in TRAIN_ONLY:
-            continue
         if isinstance(v, Mapping):
             yield from _walk(v, path + (k,))
         else:
@@ -92,13 +94,14 @@ def jax_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 def load_jax_variables(model: nn.Module, variables: Mapping):
     """Load a converted JAX tree into ``model``. A serving-only tree (a JAX
-    init with ``train=False``) has no flows: those keys may be missing and
-    keep the model's own init. Any other missing or unexpected key raises.
+    init with ``train=False``) has no flows and no heatmap branch: the keys
+    of those subtrees (``TRAIN_ONLY``) may be missing and keep the model's
+    own init. Any other missing or unexpected key raises.
     """
     result = model.load_state_dict(jax_variables_to_state_dict(variables),
                                    strict=False)
     missing = [k for k in result.missing_keys
-               if not any(f".{f}." in f".{k}" for f in FLOWS)]
+               if not any(f".{f}." in f".{k}" for f in TRAIN_ONLY)]
     if missing or result.unexpected_keys:
         raise KeyError(f"JAX variables do not fit the model: missing "
                        f"{missing}, unexpected {result.unexpected_keys}")

@@ -36,8 +36,8 @@ def test_builder_refuses_what_is_not_ported():
         build_detector(cfg.model)
     cfg = Config.fromfile(os.path.join(
         REPO, "configs/videopose/pavenet_tiny_debug.py"))
-    cfg.model.bbox_head.loss_oks.loss_weight = 2.0
-    with pytest.raises(KeyError, match="loss_oks"):
+    cfg.model.bbox_head.loss_kpt.type = "mmdet.SmoothL1Loss"
+    with pytest.raises(KeyError, match="loss_kpt"):
         build_detector(cfg.model)
 
 

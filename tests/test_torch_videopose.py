@@ -86,14 +86,19 @@ def test_converter_consumes_every_leaf(jax_side):
     before = model.head.flow.s0.Dense_0.weight.detach().clone()
     load_jax_variables(model, variables)
     assert torch.equal(model.head.flow.s0.Dense_0.weight, before)
-    # the heatmap branch (not ported) is skipped by name; anything unknown
-    # raises, and so does a missing key outside the flows
+    # PETR's heatmap branch converts like any subtree, and a model without
+    # it refuses it; anything unknown raises, and so does a missing key
+    # outside the flows
     extra = {"params": dict(variables["params"]),
              "batch_stats": variables["batch_stats"]}
     extra["params"]["head"] = dict(extra["params"]["head"],
                                    fc_hm={"kernel": np.ones(
                                        (2, 2), np.float32)})
-    assert set(jax_variables_to_state_dict(extra)) == set(sd)
+    assert set(jax_variables_to_state_dict(extra)) == set(sd) | {
+        "head.fc_hm.weight"}
+    with pytest.raises(KeyError, match="fc_hm"):
+        load_jax_variables(model, extra)
+    del extra["params"]["head"]["fc_hm"]
     extra["params"]["head"]["odd"] = {"embedding": np.ones(3, np.float32)}
     with pytest.raises(KeyError, match="odd/embedding"):
         jax_variables_to_state_dict(extra)
