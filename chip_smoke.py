@@ -3,9 +3,11 @@
 dataset-to-AP CLIs once on one CUDA card: the flagship (deformable
 encoder) in f32 and bf16, its from-scratch recipe (trainable BatchNorm),
 its windowed-encoder variant, the Swin-L and T=5 configs, flip and
-multi-scale test-time augmentation, the distillation CLI, and the PETR
+multi-scale test-time augmentation, the distillation CLI, the PETR
 family (PETR R50 and HRNet-W48 on COCO, PETR Swin-L on CrowdPose, HRNet-W48
-video pretraining) with COCO-format data through the CLIs.
+video pretraining) with COCO-format data through the CLIs, and SOIT and
+DK-DETR (instance masks, text-embedding classes) with instance scenes and
+a VOC tree through the test CLI.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parent DIR   # only phases 1-3 and the comparison
@@ -154,6 +156,39 @@ non-zero):
    (the same metrics), and cuda against torch clip by clip on the plain
    path's top-k.
 
+24. SOIT R50 (``configs/soit/soit_r50_16x2_50e_coco.py``: 80 classes, 300
+   queries, 6/6 layers, 100 detections): ``init_detector`` and
+   ``inference_detector`` on 3 synthetic 720x1280 images (800x1344
+   bucket), f32 and bf16: exactly 13 msda launches per image (6 encoder,
+   the one-head seg encoder, 6 box-reference decoder layers; the dynamic
+   mask calls run the plain version, as JAX's ``impl='xla'``, and launch
+   nothing), peak memory, the dynamic-mask call's time and bound; cuda
+   against torch (TF32 off) on the plain path's proposals and detections:
+   boxes within 1e-2 px, scores 1e-4, mask probabilities 1e-3, labels
+   equal, the kernels' own proposals a tie at most; bf16 stage by stage
+   within ``BF16_STAGE_TOL``. The msda kernels against the plain version
+   on the captured in-model calls: the seg encoder (B=1 serving, B=2 in
+   train mode) and the first and last decoder layers, forward and
+   backward, f32 and bf16, with the share of sampling locations outside
+   [0, 1]. Train: ``init_trainer``, 8 mini-steps (one update) at 800x1344,
+   B=2 (the config's), 30 GT slots with seeded boxes, labels and box masks:
+   13+13 launches each, ms per step, peak memory; one mini-step cuda
+   against torch on the plain path's proposals: the same matches in all 7
+   sets, every loss (``loss_mask_dice``, ``loss_mask_bce``, ``enc_loss_*``)
+   within 1e-4, the gradient norm within 1e-3.
+25. DK-DETR R50 LVIS (``configs/dk-detr/dkd_r50_70e_lvis.py``: 1203 classes,
+   seeded (1203, 512) text embeddings read from a ``.npy`` by
+   ``PseudoTextEncoder``, temperature 0.05, trainable BatchNorm, 300
+   detections): phase 24 in f32, at its B=1; every trainable BatchNorm's
+   running statistics move, and match the plain path's within 1e-5.
+26. The test CLI on instance scenes (3 categories, polygon masks) at
+   448x768 and a VOC2007 tree of them: seed-0 checkpoints of SOIT, of
+   ``dkd_r50_70e_test_coco.py`` with 80 text rows and of
+   ``dkd_r50_70e_test_voc.py`` with 20 (fewer than the model's 1203
+   classes: every label within the rows) through ``tools.test.main``,
+   every detection kept: 13 launches per image, bbox and segm AP or VOC
+   mAP, ms per image.
+
 Each run sets every launch count to 0 just before it and reads them just
 after. The last two lines are the kernels' JSON record (launches by run,
 bf16 launches beside them) and the contract line
@@ -237,6 +272,22 @@ COCO_STEPS = 4
 # scales) and the distillation CLI's steps
 TTA_RUNS = (("flip", True, None), ("flip_scales", True, (1.0, 0.75)))
 E2E_DISTILL_STEPS = 4
+# phases 24-26: SOIT R50 and DK-DETR R50 LVIS (13 msda calls per image:
+# 6 encoder layers, the one-head seg encoder over level 0, 6 box-refining
+# decoder layers; the per-instance mask attention runs the plain version,
+# as the JAX package's impl='xla'), their test configs through the test
+# CLI on instance scenes with 3 categories and a VOC2007 tree
+SOIT_CONFIG = "configs/soit/soit_r50_16x2_50e_coco.py"
+DKDETR_CONFIG = "configs/dk-detr/dkd_r50_70e_lvis.py"
+DKDETR_TEST_CONFIGS = (("coco", "configs/dk-detr/dkd_r50_70e_test_coco.py",
+                        80),
+                       ("voc", "configs/dk-detr/dkd_r50_70e_test_voc.py",
+                        20))
+SOIT_CALLS = 13
+DET_DATA = CHIP_DATA / "instances"
+DET_CATEGORIES = 3
+# cuda vs torch on SOIT serving: boxes (px), scores, mask probabilities
+SOIT_TOL = dict(boxes=1e-2, scores=1e-4, masks=1e-3)
 # msda kernel vs plain: max abs error within these fractions of the plain
 # version's max |out| (|grad|), f32 and bf16
 MSDA_FWD_TOL = (("float32", 1e-5), ("bfloat16", 1e-2))
@@ -951,7 +1002,15 @@ def serve(smi, config, per_clip, dtype="f32"):
           f"pipeline included), {model_ms:.2f} ms/clip forward_test; peak "
           f"memory {peak_gb:.2f} GiB | {smi}", flush=True)
 
-    # full-model parity: plain kernels' versions vs the kernels, TF32 off
+    serve_parity(config, model, batch, dtype)
+    return launches, model_ms
+
+
+def serve_parity(config, model, batch, dtype):
+    """Full-model parity, TF32 off: a plain model with ``model``'s weights
+    (``impl='torch'``) against ``model``'s kernels on ``batch``; returns
+    the plain model."""
+    from pavenet_tpu_torch.apis import init_detector
     tf32(False)
     plain = init_detector(str(ROOT / config), device="cuda", impl="torch",
                           dtype=dtype)
@@ -961,41 +1020,68 @@ def serve(smi, config, per_clip, dtype="f32"):
     else:
         serve_parity_f32(config, model, plain, batch)
     tf32(True)
-    return launches, model_ms
+    return plain
+
+
+def forward_kwargs(batch):
+    """The batch's keys ``forward_outputs`` takes beside the images:
+    DK-DETR's ``text_feats``."""
+    return {k: batch[k] for k in ("text_feats",) if k in batch}
 
 
 def serve_parity_f32(config, model, plain, batch):
-    """f32 serving, kernels against the plain path: the detections within
-    1e-2 px and the keep mask equal, with both paths on the plain path's
-    top-k proposals. Where the kernels' own top-k differs from the plain
-    path's, the difference must be a tie to rounding: the encoder's
-    proposal scores of the two paths within 1e-5 of their largest, and at
-    every rank the two selections' plain scores as close (the decoder's
-    query slots carry learned embeddings, so two proposals that swap places
-    change both slots' outputs)."""
+    """f32 serving, kernels against the plain path, both on the plain
+    path's top-k proposals (and SOIT's on its detections, ``det_idx``):
+    keypoints within 1e-2 px and the keep mask equal; SOIT's boxes, scores
+    and mask probabilities within ``SOIT_TOL`` and the labels equal. Where
+    the kernels' own top-k differs from the plain path's, the difference
+    must be a tie to rounding: the encoder's proposal scores of the two
+    paths within 1e-5 of their largest, and at every rank the two
+    selections' plain scores as close (the decoder's query slots carry
+    learned embeddings, so two proposals that swap places change both
+    slots' outputs)."""
     import torch
+    fwd = forward_kwargs(batch)
+    det = hasattr(plain, "select_detections")
     with torch.inference_mode():
-        want_outs = plain.forward_outputs(batch["img"], batch["img_shape"])
-        own_outs = model.forward_outputs(batch["img"], batch["img_shape"])
-        topk = want_outs["topk_idx"]
-        got = model.forward_test(batch, topk_idx=topk)
-        want = plain.forward_test(batch, topk_idx=topk)
+        want_outs = plain.forward_outputs(batch["img"], batch["img_shape"],
+                                          **fwd)
+        own_outs = model.forward_outputs(batch["img"], batch["img_shape"],
+                                         **fwd)
+        pin = dict(topk_idx=want_outs["topk_idx"])
+        if det:
+            pin["det_idx"] = plain.select_detections(want_outs)[1]
+        got = model.forward_test(batch, **pin)
+        want = plain.forward_test(batch, **pin)
     same, score_err, rank_gap = topk_tie(own_outs, want_outs)
-    kpt_err = (got["det_kpts"][..., :2]
-               - want["det_kpts"][..., :2]).abs().max().item()
-    keep_equal = torch.equal(got["keep"], want["keep"]) and (
-        model.with_nms or bool(got["keep"].all()))
-    if not (kpt_err <= 1e-2 and keep_equal and score_err <= 1e-5
-            and rank_gap <= 1e-5):
+    if det:
+        errs = dict(
+            boxes=(got["det_bboxes"][..., :4]
+                   - want["det_bboxes"][..., :4]).abs().max().item(),
+            scores=(got["det_bboxes"][..., 4]
+                    - want["det_bboxes"][..., 4]).abs().max().item(),
+            masks=(got["det_masks"] - want["det_masks"]).abs().max().item())
+        limits, equal = SOIT_TOL, ("labels", torch.equal(
+            got["det_labels"], want["det_labels"]))
+    else:
+        errs = dict(det_kpts=(got["det_kpts"][..., :2]
+                              - want["det_kpts"][..., :2]).abs().max().item())
+        limits, equal = dict(det_kpts=1e-2), ("keep", torch.equal(
+            got["keep"], want["keep"]) and (model.with_nms
+                                             or bool(got["keep"].all())))
+    if not (all(errs[k] <= limits[k] for k in errs) and equal[1]
+            and score_err <= 1e-5 and rank_gap <= 1e-5):
         raise AssertionError(
-            f"cuda vs torch model {config}: det_kpts max err {kpt_err} px, "
-            f"keep equal {keep_equal}; proposal scores {score_err}, own "
-            f"top-k {'equal' if same else 'differs'}, rank score gap "
-            f"{rank_gap}")
+            f"cuda vs torch model {config}: max abs errors {errs} (limits "
+            f"{limits}), {equal[0]} equal {equal[1]}; proposal scores "
+            f"{score_err}, own top-k {'equal' if same else 'differs'}, rank "
+            f"score gap {rank_gap}")
     print(f"parity {config}: impl=cuda vs impl=torch on the full model, "
-          f"TF32 off, on the plain path's top-k: det_kpts max abs err "
-          f"{kpt_err:.3e} px, keep equal; proposal scores within "
-          f"{score_err:.3e}; the kernels' own top-k "
+          f"TF32 off, on the plain path's "
+          f"{'proposals and detections' if det else 'top-k'}: max abs err "
+          f"{json.dumps(errs)} (limits {json.dumps(limits)}), {equal[0]} "
+          f"equal; proposal scores within {score_err:.3e}; the kernels' own "
+          f"top-k "
           f"{'equal' if same else f'a tie (rank score gap {rank_gap:.3e})'}",
           flush=True)
 
@@ -1024,32 +1110,47 @@ def rel_err(a, b):
 
 def serve_parity_bf16(config, model, plain, batch):
     """bf16 serving, kernels against the plain path, stage by stage: the
-    encoder memory and proposal scores; the pose decoder given the plain
-    path's top-k (bf16 proposal scores tie, and a tie decided the other
-    way changes the queries, not the kernels' error); the joint decoder on
-    the plain path's best ``max_per_img`` poses. Each within
+    encoder memory and proposal scores; the decoder given the plain path's
+    top-k (bf16 proposal scores tie, and a tie decided the other way
+    changes the queries, not the kernels' error); then PAVE-Net's and
+    PETR's joint decoder on the plain path's best ``max_per_img`` poses,
+    or SOIT's boxes and masks on the plain path's detections. Each within
     ``BF16_STAGE_TOL`` of the plain output's largest value."""
     import torch
+    fwd = forward_kwargs(batch)
+    det = hasattr(plain, "select_detections")
     with torch.inference_mode():
-        want = plain.forward_outputs(batch["img"], batch["img_shape"])
-        own = model.forward_outputs(batch["img"], batch["img_shape"])
+        want = plain.forward_outputs(batch["img"], batch["img_shape"], **fwd)
+        own = model.forward_outputs(batch["img"], batch["img_shape"], **fwd)
         got = model.forward_outputs(batch["img"], batch["img_shape"],
-                                    topk_idx=want["topk_idx"])
-        M = plain.max_per_img
-        best = want["all_cls_scores"][-1][..., 0].float().topk(M, 1).indices
-        frames = want["frame_kpt_preds"]
-        B, T = frames.shape[:2]
-        ref = torch.gather(frames, 2, best[:, None, :, None].expand(
-            B, T, M, frames.shape[-1])).transpose(1, 2)
-        refined = [m.head.forward_refine(o["memory"], o["mask_flatten"],
-                                         o["valid_ratios"], ref,
-                                         o["spatial_shapes"])
-                   for m, o in ((model, got), (plain, want))]
-    errs = {k: rel_err(got[k], want[k]) for k in (
-        "memory", "enc_cls_scores", "all_cls_scores", "all_kpt_preds",
-        "all_sigma_preds", "frame_kpt_preds")}
-    errs.update({f"refine_{k}": rel_err(a, b) for k, a, b in zip(
-        ("kpts", "scores", "sigmas"), *refined)})
+                                    topk_idx=want["topk_idx"], **fwd)
+        if det:
+            keys = ("memory", "mask_feat", "enc_cls_scores",
+                    "all_cls_scores", "all_bbox_preds", "all_dyn_params")
+            pin = dict(topk_idx=want["topk_idx"],
+                       det_idx=plain.select_detections(want)[1])
+            dets = [m.forward_test(batch, **pin) for m in (model, plain)]
+            final = dict(det_bboxes=rel_err(*(d["det_bboxes"][..., :4]
+                                              for d in dets)),
+                         det_masks=rel_err(*(d["det_masks"] for d in dets)))
+        else:
+            keys = ("memory", "enc_cls_scores", "all_cls_scores",
+                    "all_kpt_preds", "all_sigma_preds", "frame_kpt_preds")
+            M = plain.max_per_img
+            best = want["all_cls_scores"][-1][..., 0].float().topk(
+                M, 1).indices
+            frames = want["frame_kpt_preds"]
+            B, T = frames.shape[:2]
+            ref = torch.gather(frames, 2, best[:, None, :, None].expand(
+                B, T, M, frames.shape[-1])).transpose(1, 2)
+            refined = [m.head.forward_refine(o["memory"], o["mask_flatten"],
+                                             o["valid_ratios"], ref,
+                                             o["spatial_shapes"])
+                       for m, o in ((model, got), (plain, want))]
+            final = {f"refine_{k}": rel_err(a, b) for k, a, b in zip(
+                ("kpts", "scores", "sigmas"), *refined)}
+    errs = {k: rel_err(got[k], want[k]) for k in keys}
+    errs.update(final)
     bad = {k: e for k, e in errs.items() if not e <= BF16_STAGE_TOL}
     if bad:
         raise AssertionError(f"bf16 cuda vs torch {config}: {errs}")
@@ -1063,11 +1164,12 @@ def serve_parity_bf16(config, model, plain, batch):
 
 
 def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
-          batch_size=1):
+          batch_size=1, batch_fn=None):
     """``TRAIN_STEPS`` mini-steps (or the config's accumulation, where it
-    accumulates more) of ``dummy_clip_batch(train=True)`` at ``hw``, in
-    ``dtype``, on ``config``: one applied update where the config
-    accumulates 8 (or 16) mini-steps, eight where it accumulates none.
+    accumulates more) of ``dummy_clip_batch(train=True)`` at ``hw`` (or of
+    ``batch_fn(rng, batch_size, hw)``, a detection batch), in ``dtype``,
+    on ``config``: one applied update where the config accumulates 8 (or
+    16) mini-steps, eight where it accumulates none.
     Frozen parameters stay, every parameter with a gradient moves, and
     every trainable BatchNorm's running statistics move. Returns the run's
     launches."""
@@ -1076,7 +1178,6 @@ def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
     from pavenet_tpu_torch.apis import init_trainer, train_step
     from pavenet_tpu_torch.apis.train import param_labels
     from pavenet_tpu_torch.core.assigner import hungarian_assign
-    from pavenet_tpu_torch.models.backbones.resnet import BatchNorm
     from pavenet_tpu_torch.models.zoo import dummy_clip_batch
 
     state = init_trainer(str(ROOT / config), device="cuda", seed=0,
@@ -1088,15 +1189,13 @@ def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
     model = state.model
     labels = param_labels(model)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    stats = {n: b.clone() for n, b in model.named_buffers()
-             if n.endswith(("running_mean", "running_var"))
-             and isinstance(model.get_submodule(n.rsplit(".", 1)[0]),
-                            BatchNorm)}
+    stats = bn_stats(model)
     rng = np.random.RandomState(0)
     batches = [dummy_clip_batch(rng, batch_size, model.num_frames,
                                 height=hw[0], width=hw[1],
                                 num_keypoints=model.num_keypoints,
                                 max_gt=state.max_gt, train=True)
+               if batch_fn is None else batch_fn(rng, batch_size, hw)
                for _ in range(steps)]
     # with one update per mini-step: the parameters whose first gradient
     # is well above Adam's eps must move (hooks on the first step only)
@@ -1145,6 +1244,15 @@ def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
                              f"{state.mini_step}: expected {steps // k}")
     if k == 1:
         grads_seen = {n for n, g in first_grad.items() if g.item() > 1e-6}
+    # AdamW's first steps move an element by about its group's lr: a
+    # tensor must move where that is at least one float32 ulp of one of
+    # its elements (a warmup's first lr, 1e-3 of the base, is not, on
+    # offset biases of magnitude 4)
+    group_lr = {id(q): g["lr"] for g in state.optimizer.param_groups
+                for q in g["params"]}
+    grads_seen = {n for n, q in model.named_parameters() if n in grads_seen
+                  and (before[n].abs() * 2.0 ** -23
+                       < group_lr.get(id(q), 0.0)).any()}
     frozen_moved, stuck = [], []
     for n, p in model.named_parameters():
         moved = not torch.equal(before[n], p.detach())
@@ -1154,7 +1262,7 @@ def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
         elif n in grads_seen and not moved:
             stuck.append(n)
     stats_stuck = [n for n, b in stats.items()
-                   if torch.equal(b, model.get_buffer(n))]
+                   if torch.equal(b, model.get_buffer(n).float())]
     if frozen_moved or stuck or stats_stuck:
         raise AssertionError(f"frozen parameters changed: {frozen_moved}; "
                              f"parameters with a gradient unchanged: {stuck}"
@@ -1184,78 +1292,96 @@ def train(smi, config, per_step, dtype="f32", hw=(800, 1344),
     return launches, statistics.median(step_ms[1:])
 
 
+def bn_stats(model):
+    """Trainable BatchNorm's running statistics by name, copied, f32."""
+    from pavenet_tpu_torch.models.backbones.resnet import BatchNorm
+    return {n: b.detach().float().clone() for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))
+            and isinstance(model.get_submodule(n.rsplit(".", 1)[0]),
+                           BatchNorm)}
+
+
 def train_parity(config, max_gt=30, dtype="f32", hw=(800, 1344),
-                 batch_size=1, fixed_topk=False, limits=(1e-4, 1e-3)):
+                 batch_size=1, fixed_topk=False, limits=(1e-4, 1e-3),
+                 batch_fn=None):
     """impl=cuda vs impl=torch on one mini-step of the model as initialised
     from seed 0 (the trained weights depend on the order of the msda
     backward's atomics, so a run would compare other weights each time),
-    dropout 0 (eval mode), TF32 off: the same matches, the losses within
-    ``limits[0]`` and the gradient norm within ``limits[1]`` relative, and
-    trainable BatchNorm's new running statistics within 1e-5 of their
-    scale. ``fixed_topk``: both paths take the plain path's top-k
-    proposals (``topk_idx``), so that a near-tie of two proposal scores
-    cannot pick other queries; the kernels' own top-k must then equal the
-    plain path's or differ by a tie (``topk_tie`` within 1e-5). In bf16
-    both paths take the plain path's top-k and matches (bf16 scores and
-    costs tie), and the kernels' own matches are reported. Returns the
-    largest loss error."""
+    dropout 0 (eval mode), TF32 off, on ``dummy_clip_batch(train=True)``
+    or ``batch_fn(rng, batch_size, hw)``'s detection batch: the same
+    matches in every set, the losses within ``limits[0]`` and the gradient
+    norm within ``limits[1]`` relative, and trainable BatchNorm's running
+    statistics all moved, the two paths' within 1e-5 of their scale.
+    ``fixed_topk``: both paths take the plain path's top-k proposals
+    (``topk_idx``, taken in train mode with the running statistics put
+    back after), so that a near-tie of two proposal scores cannot pick
+    other queries; the kernels' own top-k must then equal the plain path's
+    or differ by a tie (``topk_tie`` within 1e-5). In bf16 both paths take
+    the plain path's top-k and matches (bf16 scores and costs tie), and
+    the kernels' own matches are reported. Returns the largest loss
+    error."""
     import numpy as np
     import torch
     from pavenet_tpu_torch.apis.inference import build_model
     from pavenet_tpu_torch.apis.train import to_device
-    from pavenet_tpu_torch.models.backbones.resnet import BatchNorm
     from pavenet_tpu_torch.models.zoo import dummy_clip_batch
 
     tf32(False)
     cuda_model, plain = (build_model(str(ROOT / config), impl=impl,
                                      dtype=dtype).cuda().eval()
                          for impl in ("cuda", "torch"))
+    rng = np.random.RandomState(1)
     batch = to_device(dummy_clip_batch(
-        np.random.RandomState(1), batch_size, plain.num_frames,
-        height=hw[0], width=hw[1], num_keypoints=plain.num_keypoints,
-        max_gt=max_gt, train=True), "cuda")
+        rng, batch_size, plain.num_frames, height=hw[0], width=hw[1],
+        num_keypoints=plain.num_keypoints, max_gt=max_gt, train=True)
+        if batch_fn is None else batch_fn(rng, batch_size, hw), "cuda")
+    fwd = forward_kwargs(batch)
     bf16 = dtype == "bf16"
+    before = bn_stats(plain)
     topk, tie = None, None
     if fixed_topk or bf16:
-        if not plain.norm_eval:
-            raise ValueError("a top-k taken ahead would move trainable "
-                             "BatchNorm statistics")
         with torch.no_grad():
             want_outs = plain.forward_outputs(batch["img"],
-                                              batch["img_shape"], train=True)
+                                              batch["img_shape"], train=True,
+                                              **fwd)
             topk = want_outs["topk_idx"]
             if not bf16:   # the kernels' own top-k: equal, or a tie
                 tie = topk_tie(cuda_model.forward_outputs(
-                    batch["img"], batch["img_shape"], train=True), want_outs)
+                    batch["img"], batch["img_shape"], train=True, **fwd),
+                    want_outs)
                 if not (tie[1] <= 1e-5 and tie[2] <= 1e-5):
                     raise AssertionError(f"cuda vs torch {config}: the "
                                          f"kernels' own top-k is no tie: "
                                          f"{tie}")
-    results, outs, plain_targets = {}, {}, []
+        del want_outs
+        for m in (plain, cuda_model):
+            for n, b in before.items():
+                m.get_buffer(n).copy_(b)
+    results, outs, used = {}, {}, {}
     for name, model in (("torch", plain), ("cuda", cuda_model)):
         with torch.no_grad():
             outs[name] = model.forward_outputs(batch["img"],
                                                batch["img_shape"],
-                                               topk_idx=topk)
-            targets = model.match(outs[name], batch)
-        if bf16 and name == "torch":   # the plain path's matches, kept
-            match = model.match
-            model.match = lambda o, b: plain_targets.append(match(o, b)) \
-                or plain_targets[-1]
-        elif bf16:
-            model.match = lambda o, b: plain_targets[-1]
+                                               topk_idx=topk, **fwd)
+            own = model.match(outs[name], batch) if bf16 else None
+        match = model.match
+
+        def record(o, b, name=name, match=match):
+            """The matches the loss uses: in bf16 the plain path's."""
+            used[name] = (used["torch"] if bf16 and name == "cuda"
+                          else match(o, b))
+            return used[name]
+        model.match = record
         model.zero_grad(set_to_none=True)
         losses = model.forward_train(batch, topk_idx=topk)
         losses["loss"].backward()
+        del model.match
         norm = torch.linalg.vector_norm(torch.stack([
             p.grad.norm() for p in model.parameters() if p.grad is not None]))
-        stats = {n: b.float() for n, b in model.named_buffers()
-                 if n.endswith(("running_mean", "running_var"))
-                 and isinstance(model.get_submodule(n.rsplit(".", 1)[0]),
-                                BatchNorm)}
-        results[name] = ([t.query_idx for t in targets],
+        results[name] = ([getattr(t, "query_idx", t)
+                          for t in (own if bf16 else used[name])],
                          {k: v.item() for k, v in losses.items()},
-                         norm.item(), stats)
+                         norm.item(), bn_stats(model))
         model.zero_grad(set_to_none=True)
     (idx_c, loss_c, norm_c, st_c), (idx_t, loss_t, norm_t, st_t) = (
         results["cuda"], results["torch"])
@@ -1268,15 +1394,19 @@ def train_parity(config, max_gt=30, dtype="f32", hw=(800, 1344),
     # decoder layer's scores, as max abs error over max abs value
     parts = {k: rel_err(outs["cuda"][k], outs["torch"][k])
              for k in ("memory", "enc_cls_scores", "init_reference",
-                       "all_cls_scores")}
+                       "all_cls_scores") if k in outs["torch"]}
     rel = {k: abs(loss_c[k] - loss_t[k]) / abs(loss_t[k]) for k in loss_t}
+    worst = max(rel, key=rel.get)
     bad = {k: r for k, r in rel.items() if not r <= limits[0]}
     norm_rel = abs(norm_c - norm_t) / norm_t
     st_err = max([rel_err(st_c[n], st_t[n]) for n in st_t] + [0.0])
-    if bad or not norm_rel <= limits[1] or not st_err <= 1e-5:
+    moved = sum(not torch.equal(st_t[n], before[n]) for n in st_t)
+    if (bad or not norm_rel <= limits[1] or not st_err <= 1e-5
+            or moved != len(st_t)):
         raise AssertionError(f"cuda vs torch train step: loss rel errors "
                              f"{rel}, grad norm {norm_c} vs {norm_t}; "
-                             f"running statistics {st_err}; outputs {parts}")
+                             f"running statistics {st_err} ({moved} of "
+                             f"{len(st_t)} moved); outputs {parts}")
     how = ("both on the plain path's top-k and matches" if bf16 else
            "both on the plain path's top-k (the kernels' own "
            + ("equal" if tie[0] else f"a tie: proposal scores within "
@@ -1286,12 +1416,15 @@ def train_parity(config, max_gt=30, dtype="f32", hw=(800, 1344),
           f"mini-step at {hw[0]}x{hw[1]}, B={batch_size}, dropout 0, TF32 "
           f"off, {how}: matched queries {'equal' if same else 'differ'} in "
           f"{len(idx_c)} sets (the kernels' own), max loss rel err "
-          f"{max(rel.values()):.3e} (limit {limits[0]}), grad norm "
-          f"{norm_c:.6g} vs {norm_t:.6g} (rel {norm_rel:.3e}, limit "
-          f"{limits[1]}); {len(st_t)} running statistics within "
-          f"{st_err:.3e}; outputs {json.dumps(parts)}", flush=True)
+          f"{rel[worst]:.3e} ({worst}) over {len(rel)} losses (limit "
+          f"{limits[0]}), grad norm {norm_c:.6g} vs {norm_t:.6g} (rel "
+          f"{norm_rel:.3e}, limit {limits[1]}); {len(st_t)} running "
+          f"statistics moved, within {st_err:.3e}; outputs "
+          f"{json.dumps(parts)}", flush=True)
+    del cuda_model, plain, batch, outs
+    torch.cuda.empty_cache()
     tf32(True)
-    return max(rel.values())
+    return rel[worst]
 
 
 def distill(smi):
@@ -1711,11 +1844,15 @@ def dataset_to_ap(smi):
     return runs
 
 
-def write_coco_scenes(root, seed=0):
-    """COCO-format keypoint scenes (K=17) at ``COCO_HW``: per split of
-    ``COCO_IMAGES``, seeded noise images with 1-3 people each, a person a
-    filled box with its keypoints drawn inside (visibility 2 or 0), and the
-    json (bbox, area, num_keypoints) as ``<root>/<split>.json``."""
+def write_coco_scenes(root, seed=0, categories=0):
+    """COCO-format scenes at ``COCO_HW``: per split of ``COCO_IMAGES``,
+    seeded noise images with 1-3 objects each, and the json as
+    ``<root>/<split>.json``. Keypoint scenes (K=17, ``categories`` 0): a
+    person is a filled box with its keypoints drawn inside (visibility 2
+    or 0), the json with bbox, area and num_keypoints. Instance scenes
+    (``categories`` > 0): an object of category 1..``categories`` is a
+    filled hexagon inside its box, the json with its polygon
+    ``segmentation``, bbox and area."""
     import cv2
     import numpy as np
     rng = np.random.RandomState(seed)
@@ -1730,6 +1867,23 @@ def write_coco_scenes(root, seed=0):
             for _ in range(rng.randint(1, 4)):
                 bw, bh = rng.uniform(80, 300), rng.uniform(150, 400)
                 x0, y0 = rng.uniform(0, W - bw), rng.uniform(0, H - bh)
+                if categories:
+                    color = tuple(int(c) for c in rng.randint(0, 256, 3))
+                    ang = np.linspace(0, 2 * np.pi, 7)[:-1] + rng.rand()
+                    poly = np.stack([x0 + bw / 2 * (1 + np.cos(ang)),
+                                     y0 + bh / 2 * (1 + np.sin(ang))], 1)
+                    cv2.fillPoly(img, [poly.round().astype(np.int32)], color)
+                    x, y = poly[:, 0], poly[:, 1]
+                    anns.append(dict(
+                        id=len(anns) + 1, image_id=i + 1,
+                        category_id=int(rng.randint(1, categories + 1)),
+                        segmentation=[poly.reshape(-1).round(2).tolist()],
+                        bbox=[x.min(), y.min(), x.max() - x.min(),
+                              y.max() - y.min()],
+                        area=0.5 * abs(np.dot(x, np.roll(y, 1))
+                                       - np.dot(y, np.roll(x, 1))),
+                        iscrowd=0))
+                    continue
                 k = np.stack([x0 + rng.rand(17) * bw, y0 + rng.rand(17) * bh,
                               (rng.rand(17) > 0.2) * 2.0], 1)
                 cv2.rectangle(img, (int(x0), int(y0)),
@@ -1746,9 +1900,12 @@ def write_coco_scenes(root, seed=0):
                     num_keypoints=int((k[:, 2] > 0).sum()),
                     bbox=[x0, y0, bw, bh], area=bw * bh, iscrowd=0))
             cv2.imwrite(str(root / name), img)
+        cats = ([dict(id=c, name=f"class{c}")
+                 for c in range(1, categories + 1)] if categories
+                else [dict(id=1, name="person")])
         with open(root / f"{split}.json", "w") as f:
-            json.dump(dict(images=images, annotations=anns, categories=[
-                dict(id=1, name="person")]), f)
+            json.dump(dict(images=images, annotations=anns,
+                           categories=cats), f)
 
 
 def petr_cli(smi):
@@ -1840,6 +1997,388 @@ def petr_cli(smi):
           f"1e-5), {par['own_topk']} of {par['passes']} clips with the same "
           f"own top-k", flush=True)
     return runs
+
+
+def det_text_feats(rows):
+    """Seeded (rows, 512) class embeddings, written to a ``.npy`` under
+    ``CHIP_WORK`` and read back by ``PseudoTextEncoder``; None for 0
+    rows (SOIT)."""
+    import numpy as np
+    from pavenet_tpu_torch.models.text_encoder import PseudoTextEncoder
+    if not rows:
+        return None, None
+    path = CHIP_WORK / "text" / f"text_{rows}.npy"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.save(path, np.random.RandomState(rows).randn(rows, 512).astype(
+        np.float32))
+    return PseudoTextEncoder(str(path), 512).get_text_feat(), path
+
+
+def det_batch_fn(num_classes, text_feats, G=30):
+    """``train``'s detection batches: noise images at ``hw``, G boxes
+    inside the valid region (``img_shape`` (H, W - 11)) with seeded labels,
+    each box's mask the filled box at the input size, the first 3/4 of the
+    slots valid; DK-DETR's ``text_feats`` beside them."""
+    import numpy as np
+
+    def make(rng, B, hw):
+        H, W = hw
+        x0 = rng.uniform(0, (W - 11) * 0.7, (B, G))
+        y0 = rng.uniform(0, H * 0.7, (B, G))
+        bw = rng.uniform(32, (W - 11) * 0.3, (B, G))
+        bh = rng.uniform(32, H * 0.3, (B, G))
+        ys = np.arange(H)[:, None]
+        xs = np.arange(W)[None, :]
+        masks = np.empty((B, G, H, W), np.uint8)
+        for b in range(B):
+            for g in range(G):
+                masks[b, g] = ((ys >= y0[b, g]) & (ys < y0[b, g] + bh[b, g])
+                               & (xs >= x0[b, g]) & (xs < x0[b, g] + bw[b, g]))
+        valid = np.zeros((B, G), bool)
+        valid[:, : G * 3 // 4] = True
+        batch = dict(
+            img=rng.randn(B, H, W, 3).astype(np.float32),
+            img_shape=np.tile(np.array([[H, W - 11]], np.int32), (B, 1)),
+            scale_factor=np.ones((B, 2), np.float32),
+            gt_boxes=np.stack([x0, y0, x0 + bw, y0 + bh], -1).astype(
+                np.float32),
+            gt_labels=rng.randint(0, num_classes, (B, G)).astype(np.int64),
+            gt_masks=masks, gt_valid=valid)
+        if text_feats is not None:
+            batch["text_feats"] = text_feats
+        return batch
+    return make
+
+
+def det_feed(img, text_feats):
+    """One synthetic image's serving batch on the card (the test pipeline
+    into the 800x1344 bucket), as ``inference_detector`` makes it."""
+    import torch
+    from pavenet_tpu_torch.apis.inference import host_batch
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in host_batch(img, 1, (1333, 800)).items()}
+    batch["img"] = batch["img"][:, 0]
+    if text_feats is not None:
+        batch["text_feats"] = torch.from_numpy(text_feats).cuda()
+    return batch
+
+
+def capture_det_calls(model, batch, prefix, keep, train=False):
+    """The inputs of the named kernel msda calls (``keep``) of one
+    ``forward_outputs`` of ``model`` on the plain path:
+    ``[(name, value, levels, loc, attn)]``, named ``prefix`` +
+    encoder0-5, seg_encoder, decoder0-5 in call order."""
+    import torch
+    from pavenet_tpu_torch.models.attention import deformable
+    names = ([f"{prefix}encoder{i}" for i in range(6)]
+             + [f"{prefix}seg_encoder"]
+             + [f"{prefix}decoder{i}" for i in range(6)])
+    calls, dispatch = [], deformable.ms_deform_attn
+
+    def record(value, shapes, loc, attn, **kw):
+        name = names[len(calls)]
+        calls.append(name)
+        if name in keep:
+            captured.append((name, value.detach().clone(),
+                             tuple(map(tuple, shapes)),
+                             loc.detach().float().clone(),
+                             attn.detach().float().clone()))
+        return dispatch(value, shapes, loc, attn, **kw)
+
+    captured = []
+    deformable.ms_deform_attn = record
+    try:
+        with torch.no_grad():
+            model.forward_outputs(batch["img"], batch["img_shape"],
+                                  train=train,
+                                  text_feats=batch.get("text_feats"))
+    finally:
+        deformable.ms_deform_attn = dispatch
+    if len(calls) != SOIT_CALLS:
+        raise AssertionError(f"{len(calls)} msda calls in one forward")
+    return captured
+
+
+def check_captured(captured, fwd, bwd, backward=True):
+    """The msda kernels against their plain versions on captured in-model
+    calls, f32 and bf16 (forward, and backward with a seeded g), each
+    record appended to ``fwd`` / ``bwd``; prints the share of sampling
+    locations outside [0, 1] (zero-padded taps)."""
+    import torch
+    from pavenet_tpu_torch.ops import _ext
+    from pavenet_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
+                                                      ms_deform_attn_torch)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name, v, levels, loc, attn in captured:
+        outside = ((loc < 0) | (loc > 1)).any(-1).float().mean().item()
+        print(f"captured {name} {tuple(loc.shape)}: {100 * outside:.2f}% of "
+              "sampling locations outside [0, 1]", flush=True)
+        for dtype, tol in MSDA_FWD_TOL:
+            fwd.append(forward_record(name, v.to(getattr(torch, dtype)),
+                                      levels, loc, attn, tol, ms_deform_attn,
+                                      ms_deform_attn_torch))
+        if not backward:
+            continue
+        B, _, H, D = v.shape
+        g = torch.randn(B, loc.shape[1], H * D, device="cuda", generator=gen)
+        for dtype, tol in MSDA_BWD_TOL:
+            bwd.append(backward_record(name, _ext,
+                                       v.to(getattr(torch, dtype)), levels,
+                                       loc, attn, g, tol,
+                                       ms_deform_attn_torch))
+
+
+def mask_call_record(model, batch, name):
+    """The dynamic-mask msda call of one ``forward_test`` (the plain
+    version, JAX's ``impl='xla'``): its shape, time (CUDA events) and
+    bound."""
+    import torch
+    from pavenet_tpu_torch.models.detectors import soit
+    calls, plain = [], soit.ms_deform_attn_torch
+
+    def record(value, shapes, loc, attn):
+        calls.append((value, shapes, loc, attn))
+        return plain(value, shapes, loc, attn)
+
+    soit.ms_deform_attn_torch = record
+    try:
+        model.forward_test(batch)
+    finally:
+        soit.ms_deform_attn_torch = plain
+    (v, levels, loc, attn), = calls
+    bound_ms, bound_by = msda_bound(False, v, levels, loc)
+    B, _, H, D = v.shape
+    rec = dict(case=name, B=B, Q=loc.shape[1], H=H, L=loc.shape[3],
+               P=loc.shape[4], D=D, instances=loc.shape[1] // v.shape[1],
+               plain_ms=cuda_ms(lambda: plain(v, levels, loc, attn)),
+               bound_ms=bound_ms, bound_by=bound_by)
+    print("mask call", json.dumps(rec), flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_det_output(out, M, rows, hw=(400, 672)):
+    """One image's detections: shapes, finite, labels below the class
+    count, mask probabilities in [0, 1]."""
+    import numpy as np
+    shapes = {k: v.shape for k, v in out.items()}
+    want = {"det_bboxes": (M, 5), "det_labels": (M,), "det_masks": (M, *hw)}
+    if shapes != want:
+        raise AssertionError(f"detections {shapes}, expected {want}")
+    if not all(np.isfinite(out[k]).all() for k in ("det_bboxes",
+                                                     "det_masks")):
+        raise AssertionError("non-finite detections")
+    m = out["det_masks"]
+    if not (0 <= out["det_labels"].min() and out["det_labels"].max() < rows
+            and m.min() >= 0 and m.max() <= 1):
+        raise AssertionError(f"labels {out['det_labels']} of {rows}, masks "
+                             f"in [{m.min()}, {m.max()}]")
+
+
+def det_serve(smi, config, dtype="f32", text_rows=0):
+    """SOIT or DK-DETR serving: ``init_detector`` and
+    ``inference_detector`` on ``CLIPS`` synthetic 720x1280 images (800x1344
+    bucket), 13 msda launches each, then cuda against torch with TF32 off.
+    Returns the launches, ``forward_test`` ms, the dynamic-mask call's
+    record and a plain model with the batch (for the captures)."""
+    import torch
+    from pavenet_tpu_torch.apis import inference_detector, init_detector
+
+    text_feats, _ = det_text_feats(text_rows)
+    model = init_detector(str(ROOT / config), device="cuda", seed=0,
+                          dtype=dtype)
+    rows = text_rows or model.num_classes
+    imgs = [clip[0] for clip in synthetic_clips(frames=1)]
+    check_det_output(inference_detector(model, imgs[0],
+                                        text_feats=text_feats),
+                     model.max_per_img, rows)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    outs = [inference_detector(model, img, text_feats=text_feats)
+            for img in imgs[1:]]
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    img_ms = start.elapsed_time(end) / CLIPS
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for out in outs:
+        check_det_output(out, model.max_per_img, rows)
+    check_launches(f"serve {config} {dtype}, {CLIPS} images", launches,
+                   expect({"msda_fwd": SOIT_CALLS}, dtype), CLIPS)
+    batch = det_feed(imgs[1], text_feats)
+    with torch.inference_mode():
+        model_ms = cuda_ms(lambda: model.forward_test(batch), reps=5,
+                           warmup=1)
+        mask = mask_call_record(model, batch, f"{config} {dtype}")
+    print(f"serve {config}: {CLIPS} images at "
+          f"{tuple(batch['img'].shape[1:3])}, {dtype}, "
+          f"{model.max_per_img} detections with masks, {rows} classes; "
+          f"launches {json.dumps(launches)}; {img_ms:.2f} ms/image end to "
+          f"end (host pipeline included), {model_ms:.2f} ms/image "
+          f"forward_test; peak memory {peak_gb:.2f} GiB | {smi}", flush=True)
+    plain = serve_parity(config, model, batch, dtype)
+    del model
+    torch.cuda.empty_cache()
+    return launches, model_ms, mask, plain, batch
+
+
+def write_voc_tree(voc, scenes, split="val"):
+    """A VOC2007 tree of the instance scenes of ``split``: its images as
+    ``JPEGImages``, each object as an XML ``object`` named by VOC's class
+    of its category (1 -> aeroplane, ...) with a 1-based box, every third
+    object marked difficult, and ``ImageSets/Main/test.txt``."""
+    import shutil
+    import xml.etree.ElementTree as ET
+    from pavenet_tpu_torch.datasets import VOCDataset
+    ann = json.load(open(scenes / f"{split}.json"))
+    for d in ("Annotations", "JPEGImages", "ImageSets/Main"):
+        (voc / d).mkdir(parents=True, exist_ok=True)
+    stems = []
+    for img in ann["images"]:
+        stem = f"{img['id']:06d}"
+        stems.append(stem)
+        shutil.copy(scenes / img["file_name"], voc / "JPEGImages" /
+                    f"{stem}.jpg")
+        root = ET.Element("annotation")
+        for k, a in enumerate(a for a in ann["annotations"]
+                              if a["image_id"] == img["id"]):
+            obj = ET.SubElement(root, "object")
+            ET.SubElement(obj, "name").text = VOCDataset.CLASSES[
+                a["category_id"] - 1]
+            ET.SubElement(obj, "difficult").text = str(int(k % 3 == 2))
+            box = ET.SubElement(obj, "bndbox")
+            x, y, w, h = a["bbox"]
+            for tag, v in (("xmin", x), ("ymin", y), ("xmax", x + w),
+                           ("ymax", y + h)):
+                ET.SubElement(box, tag).text = str(int(round(v)) + 1)
+        ET.ElementTree(root).write(voc / "Annotations" / f"{stem}.xml")
+    (voc / "ImageSets/Main/test.txt").write_text("\n".join(stems) + "\n")
+
+
+def det_cli(smi):
+    """Phase 26: instance scenes (3 categories, polygon masks) at 448x768
+    and a VOC2007 tree of them; a seed-0 checkpoint of each config through
+    ``tools.test.main`` at 448x768 with every detection kept: SOIT (bbox
+    and segm AP), DK-DETR's COCO test config with 80 text rows and its VOC
+    config with 20 (fewer than its 1203 classes; every label within the
+    rows; VOC mAP). 13 msda launches per image. Returns the runs'
+    launches."""
+    import shutil
+    import torch
+    from pavenet_tpu_torch.apis import init_trainer
+    from pavenet_tpu_torch.tools import test as test_cli
+    from pavenet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    work = CHIP_WORK / "soit"
+    for d in (DET_DATA, work):
+        shutil.rmtree(d, ignore_errors=True)
+    work.mkdir(parents=True)
+    write_coco_scenes(DET_DATA, seed=1, categories=DET_CATEGORIES)
+    voc = DET_DATA / "VOCdevkit" / "VOC2007"
+    write_voc_tree(voc, DET_DATA)
+    coco = dict(ann_file=f"{DET_DATA}/val.json", img_prefix=f"{DET_DATA}/")
+    runs = {}
+    for name, config, rows, data in (
+            ("soit_cli", SOIT_CONFIG, 0, coco),
+            *((f"dkdetr_{ds}_cli", path, rows,
+               coco if ds == "coco" else dict(
+                   ann_file=f"{voc}/ImageSets/Main/test.txt",
+                   img_prefix=f"{voc}/"))
+              for ds, path, rows in DKDETR_TEST_CONFIGS)):
+        _, text_path = det_text_feats(rows)
+        text = (f"text_encoder=dict(text_feat_path={str(text_path)!r}), "
+                if rows else "")
+        cfg = work / f"{name}.py"
+        cfg.write_text(
+            f"_base_ = {str(ROOT / config)!r}\n"
+            f"model = dict({text}test_cfg=dict(score_thr=0.0))\n"
+            f"data = dict(test=dict(ann_file={data['ann_file']!r}, "
+            f"img_prefix={data['img_prefix']!r}))\n"
+            f"test_pipeline_kwargs = dict(img_scale={COCO_HW[::-1]!r}, "
+            f"buckets=({COCO_HW!r},))\n")
+        ckpt = save_checkpoint(str(work / name), init_trainer(
+            str(cfg), device="cuda", seed=0), 0)
+        dets = work / f"{name}.json"
+        reset_launches()
+        out = test_cli.main([str(cfg), ckpt, "--out", str(dets)])
+        runs[name] = read_launches()
+        check_launches(f"{name}, {out['clips']} images", runs[name],
+                       {"msda_fwd": SOIT_CALLS}, out["clips"])
+        labels = {d["category_id"] for d in json.load(open(dets))}
+        want = {"mAP50"} if "voc" in name else {"bbox/AP", "segm/AP"}
+        if not (want <= set(out["metrics"] or {}) and labels
+                and max(labels) <= (rows or 80) and min(labels) >= 1):
+            raise AssertionError(f"{name}: metrics {out['metrics']}, "
+                                 f"labels {sorted(labels)} of {rows or 80}")
+        print(f"{name}: tools.test.main on {os.path.basename(config)} "
+              f"({rows or 80} classes) at {COCO_HW[0]}x{COCO_HW[1]}: "
+              f"{out['clips']} images, {out['detections']} detections, "
+              f"labels {min(labels)}-{max(labels)}, launches "
+              f"{json.dumps(runs[name])}; eval loop {out['ms_per_clip']:.2f} "
+              f"ms/image (host included, masks resized to the image; first "
+              f"{out['first_clip_s']:.2f} s); metrics "
+              f"{json.dumps(out['metrics'])} | {smi}", flush=True)
+        torch.cuda.empty_cache()
+    return runs
+
+
+def soit_family(smi, runs, serve_ms, fwd, bwd):
+    """Phases 24-25: SOIT R50 (serve f32 and bf16) and DK-DETR R50 LVIS
+    (serve f32) at 800x1344; the kernels on their in-model calls (the seg
+    encoder at the config's train batch, forward and backward; the
+    box-reference decoder's first and last layers); 8 train mini-steps at
+    the config's batch size and one cuda-vs-torch mini-step. Adds to
+    ``runs``, ``serve_ms``, ``fwd`` and ``bwd``; returns the dynamic-mask
+    calls' records."""
+    import numpy as np
+    import torch
+    from pavenet_tpu_torch.config import Config
+    masks = []
+    for name, config, dtypes, rows in (
+            ("soit", SOIT_CONFIG, ("f32", "bf16"), 0),
+            ("dkdetr", DKDETR_CONFIG, ("f32",), 1203)):
+        cfg = Config.fromfile(str(ROOT / config))
+        batch_size = cfg.data.samples_per_gpu
+        num_classes = cfg.model.bbox_head.num_classes
+        for dtype in dtypes:
+            runs[f"{name}_serve_{dtype}"], serve_ms[(name, dtype)], mask, \
+                plain, batch = det_serve(smi, config, dtype, rows)
+            masks.append(mask)
+            if dtype != "f32":
+                del plain, batch
+                continue
+            captured = capture_det_calls(
+                plain, batch, f"{name}_",
+                {f"{name}_seg_encoder", f"{name}_decoder0",
+                 f"{name}_decoder5"})
+            text_feats, _ = det_text_feats(rows)
+            train_batch = {k: torch.as_tensor(v).cuda() for k, v in
+                           det_batch_fn(num_classes, text_feats)(
+                               np.random.RandomState(2), batch_size,
+                               (800, 1344)).items()}
+            captured += capture_det_calls(
+                plain, train_batch, f"{name}_train_",
+                {f"{name}_train_seg_encoder", f"{name}_train_decoder5"},
+                train=True)
+            del plain, batch, train_batch
+            torch.cuda.empty_cache()
+            check_captured(captured, fwd, bwd)
+            del captured
+            torch.cuda.empty_cache()
+        text_feats, _ = det_text_feats(rows)
+        runs[f"{name}_train_f32"], _ = train(
+            smi, config, {"msda_fwd": SOIT_CALLS, "msda_bwd": SOIT_CALLS},
+            batch_size=batch_size,
+            batch_fn=det_batch_fn(num_classes, text_feats))
+        torch.cuda.empty_cache()
+        train_parity(config, batch_size=batch_size, fixed_topk=True,
+                     batch_fn=det_batch_fn(num_classes, text_feats))
+    return masks
 
 
 def kernel_record(name, records, launches, replaces, **extra):
@@ -2010,12 +2549,19 @@ def main(argv=None):
     # 23. COCO-format data through the CLIs
     runs.update(petr_cli(smi))
     torch.cuda.empty_cache()
+    # 24-25. SOIT R50 and DK-DETR R50 LVIS: serve, the kernels on their
+    # in-model calls, train, cuda against torch
+    mask_calls = soit_family(smi, runs, serve_ms, fwd, bwd)
+    torch.cuda.empty_cache()
+    # 26. instance scenes and a VOC tree through the test CLI
+    runs.update(det_cli(smi))
+    torch.cuda.empty_cache()
     print("serve forward_test ms/clip, f32 / bf16: " + ", ".join(
         f"{m} {serve_ms[(m, 'f32')]:.2f} / "
         + (f"{serve_ms[(m, 'bf16')]:.2f}" if (m, "bf16") in serve_ms
            else "-") for m in ("flagship", "windowed", "swin", "frames5",
                                "petr", "petr_hrnet", "hrnet_pretrain",
-                               "petr_crowdpose"))
+                               "petr_crowdpose", "soit", "dkdetr"))
         + f" | {smi}", flush=True)
 
     def by_run(name):
@@ -2027,8 +2573,9 @@ def main(argv=None):
                and r["dtype"] == "float32"]
 
     def frames5(records):
-        """The T=5 encoder call's numbers, in-model, f32, and the PETR
-        family's calls (random and in-model), f32."""
+        """The T=5 encoder call's numbers, in-model, f32, the PETR family's
+        calls (random and in-model) and SOIT's and DK-DETR's in-model seg
+        encoder and box-reference decoder calls, f32."""
         out = {}
         for case, suffix in (("frames5_encoder0", "frames5_in_model"),
                              ("petr_encoder", "petr_encoder"),
@@ -2037,7 +2584,16 @@ def main(argv=None):
                              ("pose_decoder_k14", "pose_decoder_k14"),
                              ("petr_encoder0", "petr_encoder_in_model"),
                              ("petr_pose_decoder0",
-                              "petr_pose_decoder_in_model")):
+                              "petr_pose_decoder_in_model"),
+                             ("soit_seg_encoder", "soit_seg_encoder_in_model"),
+                             ("soit_train_seg_encoder",
+                              "soit_seg_encoder_b2_in_model"),
+                             ("dkdetr_train_seg_encoder",
+                              "dkdetr_seg_encoder_in_model"),
+                             ("soit_decoder0", "soit_decoder0_in_model"),
+                             ("soit_decoder5", "soit_decoder5_in_model"),
+                             ("soit_train_decoder5",
+                              "soit_decoder5_b2_in_model")):
             recs = [r for r in records if r["dtype"] == "float32"
                     and r["case"] == case]
             if recs:
@@ -2051,7 +2607,7 @@ def main(argv=None):
                       "pavenet_tpu/ops/pallas/msda.py:334",
                       launches_by_run=by_run("msda_fwd"),
                       merged_probe_ms_in_model=merged["fwd_merged_ms"],
-                      **frames5(fwd)),
+                      dynamic_mask_plain=mask_calls, **frames5(fwd)),
         kernel_record("msda_bwd", bwd,
                       runs["flagship_train_f32"]["msda_bwd"],
                       "pavenet_tpu/ops/pallas/msda_cs.py:662, "

@@ -2,7 +2,8 @@
 
 ``init_detector(config, device, dtype=None)`` -> model on the device, eval
 mode, in the activation dtype of ``dtype`` or the config's ``act_dtype``;
-``inference_detector(model, imgs)`` -> detections for one clip. The host
+``inference_detector(model, imgs)`` -> detections for one clip, or for one
+image of a detection model (SOIT; DK-DETR with its ``text_feats``). The host
 pipeline (``datasets/pipelines/transforms.py``) is the port's own copy of
 the JAX package's, so both packages see the same batch.
 """
@@ -17,13 +18,13 @@ from ..config import Config, resolve_act_dtype
 from ..datasets.pipelines.transforms import (
     DEFAULT_BUCKETS, FormatBatch, LoadClip, Normalize, PadToBucket, Resize)
 from ..models.builder import build_detector
-from ..models.detectors.videopose import VideoPoseDetector
+from ..models.detectors.soit import SOITDetector
 from ..utils import weight_convert
 
 
 def build_model(config: Union[str, Mapping], seed: int = 0,
                 variables: Optional[Mapping] = None, impl: str = "auto",
-                dtype: Optional[str] = None) -> VideoPoseDetector:
+                dtype: Optional[str] = None) -> torch.nn.Module:
     """Build the detector from a config file or ``Config``, on the CPU.
 
     Weights: ``variables`` (a JAX ``{'params', 'batch_stats'}`` tree of numpy
@@ -46,7 +47,7 @@ def build_model(config: Union[str, Mapping], seed: int = 0,
 
 def init_detector(config: Union[str, Mapping], device="cuda", seed: int = 0,
                   variables: Optional[Mapping] = None, impl: str = "auto",
-                  dtype: Optional[str] = None) -> VideoPoseDetector:
+                  dtype: Optional[str] = None) -> torch.nn.Module:
     """``build_model`` on ``device``, in eval mode."""
     return build_model(config, seed, variables, impl,
                        dtype).to(device).eval()
@@ -72,18 +73,24 @@ def host_batch(imgs, num_frames: int, img_scale=(1333, 800)) -> dict:
             for k in ("img", "img_shape", "scale_factor")}
 
 
-def inference_detector(model: VideoPoseDetector,
+def inference_detector(model: torch.nn.Module,
                        imgs: Union[str, np.ndarray, Sequence],
-                       img_scale=(1333, 800)) -> dict:
+                       img_scale=(1333, 800), text_feats=None) -> dict:
     """Run one clip (frame paths or RGB arrays) through the model.
 
     Returns numpy det_kpts (M, K, 3), det_bboxes (M, 5), det_labels (M,),
-    keep (M,).
+    keep (M,); for a detection model (one image) det_bboxes, det_labels and
+    det_masks (M, h, w), DK-DETR's classes the rows of ``text_feats``.
     """
     device = next(model.parameters()).device
     batch = {k: torch.from_numpy(v).to(device)
              for k, v in host_batch(imgs, model.num_frames,
                                      img_scale).items()}
+    if isinstance(model, SOITDetector):
+        batch["img"] = batch["img"][:, 0]
+        if text_feats is not None:
+            batch["text_feats"] = torch.as_tensor(text_feats,
+                                                  device=device).float()
     with torch.inference_mode():
         out = model.forward_test(batch)
     return {k: v[0].cpu().numpy() for k, v in out.items()}

@@ -9,8 +9,14 @@ is normalised there (``apis/prep.py``), runs ``forward_test`` (or, with
 host by ``_rescale_batch`` before the card normalises it, merged by
 ``merge_aug_detections``), and the detections the NMS keeps become dicts.
 ``evaluate_dataset`` adds MOTA where every detection has a ``track_id``.
+
+``run_det_inference`` is the detection and instance-segmentation loop
+(SOIT, DK-DETR): host-normalised single images, DK-DETR's ``text_feats``
+beside them, and COCO-style dicts with an xywh ``bbox`` and a binary
+``segmentation`` of the original image; ``evaluate_dataset`` gives those
+COCO box and mask AP, or the dataset's own protocol (LVIS, VOC).
 Left out: the packed fetch and its double buffering (a remote-device
-workaround), and the detection and instance-segmentation branch.
+workaround).
 """
 from __future__ import annotations
 
@@ -73,6 +79,50 @@ def _infer(model, feed, device, img_norm, flip_test, aug_scales):
             else model.forward_test(feed))
 
 
+def _inference_loop(model, loader, infer, decode, timing, logger,
+                    unit: str) -> List[dict]:
+    """The loop of both inference paths, in eval mode: ``infer(batch)``
+    gives a batch's padded outputs on the device, ``decode(batch, out, b)``
+    the detection dicts of its valid row ``b`` from those outputs on the
+    host. ``timing`` and the log line as ``run_inference`` says; ``unit``
+    names a row ("clip", "image")."""
+    was_training = model.training
+    model.eval()
+    detections: List[dict] = []
+    t_total, t_first, n_rows, n_steady = 0.0, None, 0, 0
+    t0 = time.perf_counter()
+    try:
+        for batch in loader:
+            with torch.inference_mode():
+                out = infer(batch)
+            out = {k: v.float().cpu().numpy() if v.is_floating_point()
+                   else v.cpu().numpy() for k, v in out.items()}
+            n = len(batch["img"])
+            row_valid = batch.get("_row_valid", np.ones(n, bool))
+            for b in range(n):
+                if row_valid[b]:
+                    detections.extend(decode(batch, out, b))
+            dt, t0 = time.perf_counter() - t0, time.perf_counter()
+            if t_first is None:
+                t_first = dt
+            else:
+                t_total += dt
+                n_steady += n
+            n_rows += n
+    finally:
+        model.train(was_training)
+    steady = (t_total / n_steady * 1e3 if n_steady
+              else (t_first or 0.0) * 1e3)
+    if timing is not None:
+        timing.update(clips=n_rows, first_clip_s=t_first or 0.0,
+                      ms_per_clip=steady)
+    if logger is not None and n_rows:
+        logger.info(f"inference: {n_rows} {unit}s, {len(detections)} "
+                    f"detections, {steady:.1f} ms/{unit} steady-state "
+                    f"(incl. host; first {unit} {t_first:.1f}s)")
+    return detections
+
+
 def run_inference(model, loader, score_thr: float = 0.0, logger=None,
                   img_norm=(IMG_NORM_MEAN, IMG_NORM_STD),
                   timing: Optional[dict] = None, flip_test: bool = False,
@@ -93,51 +143,90 @@ def run_inference(model, loader, score_thr: float = 0.0, logger=None,
     device = next(model.parameters()).device
     if aug_scales and len(aug_scales) == 1 and float(aug_scales[0]) == 1.0:
         aug_scales = None
-    was_training = model.training
-    model.eval()
-    detections: List[dict] = []
-    t_total, t_first, n_clips, n_steady = 0.0, None, 0, 0
-    t0 = time.perf_counter()
-    try:
-        for batch in loader:
-            with torch.inference_mode():
-                out = _infer(model, {k: batch[k] for k in FEED_KEYS},
-                             device, img_norm, flip_test, aug_scales)
-            out = {k: v.float().cpu().numpy() if v.is_floating_point()
-                   else v.cpu().numpy() for k, v in out.items()}
-            n = len(batch["img"])
-            row_valid = batch.get("_row_valid", np.ones(n, bool))
-            for b in range(n):
-                if not row_valid[b]:
-                    continue
-                kpts = out["det_kpts"][b]
-                scores = out["det_bboxes"][b, :, 4]
-                for m in np.where(out["keep"][b])[0]:
-                    if scores[m] < score_thr:
-                        continue
-                    detections.append(dict(
-                        image_id=int(batch["image_id"][b]),
-                        category_id=1,
-                        keypoints=kpts[m].reshape(-1).astype(float).tolist(),
-                        score=float(scores[m])))
-            dt, t0 = time.perf_counter() - t0, time.perf_counter()
-            if t_first is None:
-                t_first = dt
-            else:
-                t_total += dt
-                n_steady += n
-            n_clips += n
-    finally:
-        model.train(was_training)
-    steady = (t_total / n_steady * 1e3 if n_steady
-              else (t_first or 0.0) * 1e3)
-    if timing is not None:
-        timing.update(clips=n_clips, first_clip_s=t_first or 0.0,
-                      ms_per_clip=steady)
-    if logger is not None and n_clips:
-        logger.info(f"inference: {n_clips} clips, {steady:.1f} ms/clip "
-                    f"steady-state (incl. host; first clip {t_first:.1f}s)")
-    return detections
+
+    def infer(batch):
+        return _infer(model, {k: batch[k] for k in FEED_KEYS}, device,
+                      img_norm, flip_test, aug_scales)
+
+    def decode(batch, out, b):
+        kpts = out["det_kpts"][b]
+        scores = out["det_bboxes"][b, :, 4]
+        return [dict(image_id=int(batch["image_id"][b]), category_id=1,
+                     keypoints=kpts[m].reshape(-1).astype(float).tolist(),
+                     score=float(scores[m]))
+                for m in np.where(out["keep"][b])[0]
+                if scores[m] >= score_thr]
+
+    return _inference_loop(model, loader, infer, decode, timing, logger,
+                           "clip")
+
+
+def run_det_inference(model, loader, score_thr: float = 0.05,
+                      mask_thr: float = 0.5, text_feats=None, logger=None,
+                      img_norm=(IMG_NORM_MEAN, IMG_NORM_STD),
+                      timing: Optional[dict] = None) -> List[dict]:
+    """COCO-style detections (image_id, category_id = label + 1, ``bbox``
+    xywh, score, ``segmentation``) of a detection model over ``loader``
+    (T=1 batches; a uint8 image normalised on the card with ``img_norm``),
+    in eval mode; rows under ``score_thr`` and repeat-padded rows are left
+    out. ``text_feats`` (C', D) goes with every batch (DK-DETR). A mask,
+    predicted over the padded input at half its resolution, is cropped to
+    the valid region, resized to the original image (cv2 ``INTER_LINEAR``)
+    and thresholded at ``mask_thr``. ``timing`` as in ``run_inference``,
+    per image."""
+    import cv2
+    device = next(model.parameters()).device
+    tf = (None if text_feats is None
+          else torch.as_tensor(np.asarray(text_feats, np.float32),
+                               device=device))
+
+    def infer(batch):
+        feed = model_feed({k: batch[k] for k in FEED_KEYS}, device, img_norm)
+        feed["img"] = feed["img"][:, 0]
+        if tf is not None:
+            feed["text_feats"] = tf
+        return model.forward_test(feed)
+
+    def decode(batch, out, b):
+        pad_h, pad_w = np.asarray(batch["img"]).shape[-3:-1]
+        scores = out["det_bboxes"][b, :, 4]
+        sf = np.asarray(batch["scale_factor"][b])
+        ih, iw = np.asarray(batch["img_shape"][b])
+        ori_w, ori_h = int(round(iw / sf[0])), int(round(ih / sf[1]))
+        dets = []
+        for m in np.where(scores >= score_thr)[0]:
+            x1, y1, x2, y2 = out["det_bboxes"][b, m, :4]
+            mk = out["det_masks"][b, m]
+            h2 = int(np.ceil(ih / (pad_h / mk.shape[0])))
+            w2 = int(np.ceil(iw / (pad_w / mk.shape[1])))
+            mk = cv2.resize(mk[:h2, :w2].astype(np.float32), (ori_w, ori_h),
+                            interpolation=cv2.INTER_LINEAR)
+            dets.append(dict(
+                image_id=int(batch["image_id"][b]),
+                category_id=int(out["det_labels"][b, m]) + 1,
+                bbox=[float(x1), float(y1), float(x2 - x1), float(y2 - y1)],
+                score=float(scores[m]), segmentation=mk >= mask_thr))
+        return dets
+
+    return _inference_loop(model, loader, infer, decode, timing, logger,
+                           "image")
+
+
+def evaluate_detections(dataset, detections: List[dict]) -> "OrderedDict":
+    """Box (and, where the detections carry masks, mask) metrics: the
+    dataset's own ``evaluate_detections`` where it has one (LVIS, VOC),
+    else COCO AP as ``bbox/...`` and ``segm/...``."""
+    from ..core.eval.coco_det_eval import COCODetEval
+    if hasattr(dataset, "evaluate_detections"):
+        return dataset.evaluate_detections(detections)
+    results = OrderedDict()
+    dt = dataset.coco.load_res(detections)
+    iou_types = ("bbox", "segm") if "segmentation" in detections[0] \
+        else ("bbox",)
+    for iou_type in iou_types:
+        res = COCODetEval(dataset.coco, dt, iou_type=iou_type).evaluate()
+        results.update({f"{iou_type}/{k}": v for k, v in res.items()})
+    return results
 
 
 def gather_detections(detections: List[dict]) -> List[dict]:
@@ -155,8 +244,10 @@ def gather_detections(detections: List[dict]) -> List[dict]:
 def evaluate_dataset(dataset, detections: List[dict],
                      metric: str = "keypoints",
                      max_dets: int = 30) -> "OrderedDict":
-    """Keypoint metrics of ``detections`` on ``dataset`` (``metric``
-    'keypoints', the only one of a pose model): COCO OKS AP as
+    """Metrics of ``detections`` on ``dataset``: a detection model's
+    (detections without ``keypoints``) by ``evaluate_detections``; else the
+    keypoint metrics (``metric`` 'keypoints', the only one of a pose
+    model): COCO OKS AP as
     ``coco/...``; for CrowdPose its protocol alone, as
     ``keypoints_AP``, ``keypoints_AP(E)``, ``keypoints_AP(M)``,
     ``keypoints_AP(H)`` and the rest; for PoseTrack the per-joint AP as
@@ -169,6 +260,8 @@ def evaluate_dataset(dataset, detections: List[dict],
                                             frames_from_coco)
     from ..models.losses.oks_loss import OKS_SIGMAS
 
+    if detections and "keypoints" not in detections[0]:
+        return evaluate_detections(dataset, detections)
     if metric != "keypoints":
         raise ValueError(f"metric {metric!r}: a pose model is evaluated "
                          "by 'keypoints'")

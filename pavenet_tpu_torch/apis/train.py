@@ -24,9 +24,13 @@ set_to_zero})))``. Its semantics, kept here:
   ``d = 1 - momentum``, follows every mini-step (as ``make_train_step``'s
   ``ema_decay``).
 
-A batch is a ``dummy_clip_batch`` or a ``datasets/loader.py::ClipLoader``
-batch: only the keys the model reads go to the device (``feed_keys``), and
-a uint8 image is normalised there (``apis/prep.py``, with the mean and std
+The same step trains every detector the builder makes. A pose batch is a
+``dummy_clip_batch`` or a ``datasets/loader.py::ClipLoader`` batch; a
+detection batch (SOIT, DK-DETR) holds ``img`` (B, H, W, 3), ``img_shape``,
+``gt_boxes``, ``gt_labels``, ``gt_masks``, ``gt_valid`` and, for DK-DETR,
+``text_feats`` (``models/detectors/soit.py``). Only the keys the model
+reads go to the device (``feed_keys``), and a uint8 image is normalised
+there (``apis/prep.py``, with the mean and std
 of the config's ``train_pipeline_kwargs``). ``TrainState.state_dict``
 holds the whole run (model, optimizer, counts, accumulated gradient, EMA,
 dropout generator) for ``utils/checkpoint.py``.
@@ -39,17 +43,21 @@ from typing import Callable, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ..config import Config
-from ..models.detectors.videopose import VideoPoseDetector
+from ..models.detectors.soit import SOITDetector
 from ..models.layers.transformer import Dropout
 from .inference import build_model
 from .prep import IMG_NORM_MEAN, IMG_NORM_STD, device_prep
 
 # the batch keys the model reads, in training and in serving; a model with
-# PETR's heatmap loss reads ``gt_bboxes`` too (``feed_keys``)
+# PETR's heatmap loss reads ``gt_bboxes`` too, DK-DETR ``text_feats``
+# (``feed_keys``)
 MODEL_KEYS = ("img", "img_shape", "scale_factor", "gt_keypoints",
               "gt_areas", "gt_valid")
+DET_KEYS = ("img", "img_shape", "scale_factor", "gt_boxes", "gt_labels",
+            "gt_masks", "gt_valid")
 
 
 def _param_label(name: str, frozen_stages: int = 1,
@@ -134,7 +142,7 @@ def build_lr_schedule(lr_config: Mapping, base_lr: float,
     return schedule
 
 
-def param_labels(model: VideoPoseDetector) -> Dict[str, str]:
+def param_labels(model: nn.Module) -> Dict[str, str]:
     """``_param_label`` of every parameter, with the freezing flags read off
     the model (``frozen_stages``, ``norm_eval``, ``freeze_backbone_neck``),
     as ``tools/train.py`` reads them."""
@@ -144,7 +152,7 @@ def param_labels(model: VideoPoseDetector) -> Dict[str, str]:
             for name, _ in model.named_parameters()}
 
 
-def build_optimizer(model: VideoPoseDetector, weight_decay: float = 1e-4,
+def build_optimizer(model: nn.Module, weight_decay: float = 1e-4,
                     backbone_lr_mult: float = 0.1,
                     offsets_lr_mult: float = 0.1) -> torch.optim.AdamW:
     """AdamW over the 'base', 'backbone', 'backbone_norm' (no weight decay)
@@ -167,7 +175,7 @@ def build_optimizer(model: VideoPoseDetector, weight_decay: float = 1e-4,
 @dataclasses.dataclass
 class TrainState:
     """A model with its optimizer, schedule and accumulation state."""
-    model: VideoPoseDetector
+    model: nn.Module
     optimizer: torch.optim.AdamW
     schedule: Callable[[int], float]
     grad_clip: float
@@ -303,9 +311,12 @@ def accumulate(state: TrainState):
         apply_update(state)
 
 
-def feed_keys(model: VideoPoseDetector) -> tuple:
-    """The batch keys ``model`` reads: ``MODEL_KEYS``, and ``gt_bboxes``
-    where its heatmap loss takes the radius from them."""
+def feed_keys(model: nn.Module) -> tuple:
+    """The batch keys ``model`` reads: a pose model ``MODEL_KEYS``, and
+    ``gt_bboxes`` where its heatmap loss takes the radius from them; SOIT
+    ``DET_KEYS``, and DK-DETR ``text_feats``."""
+    if isinstance(model, SOITDetector):
+        return DET_KEYS + (("text_feats",) if model.cls_emb_dim else ())
     heatmap = model.head.with_heatmap and model.loss_hm_weight > 0
     return MODEL_KEYS + (("gt_bboxes",) if heatmap else ())
 

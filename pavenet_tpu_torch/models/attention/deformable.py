@@ -1,7 +1,8 @@
 """Deformable attention modules (as ``pavenet_tpu/models/attention/
 deformable.py``).
 
-- ``MultiScaleDeformableAttention``: single-frame encoder self-attention.
+- ``MultiScaleDeformableAttention``: single-frame encoder self-attention,
+  and SOIT's decoder cross-attention on box references.
 - ``MultiFrameDeformableAttention``: joint-decoder cross-attention over T
   frames.
 - ``MultiFramePoseDeformableAttention``: pose-decoder cross-attention with
@@ -42,17 +43,22 @@ def spoke_offset_bias(num_heads: int, num_levels: int,
     return (grid * scale).reshape(-1)
 
 
-def make_sampling_locations(reference_points, offsets, spatial_shapes):
-    """Standard rule for point references ``(..., Q, L, 2)``: offsets
-    ``(..., Q, H, L, P, 2)`` in pixels of each level. (The JAX package's box
-    form, ``(..., Q, L, 4)``, has no caller on the serving path.)"""
-    if reference_points.shape[-1] != 2:
-        raise ValueError(f"reference_points last dim must be 2, got "
-                         f"{reference_points.shape[-1]}")
-    normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
-                              dtype=offsets.dtype, device=offsets.device)
-    return (reference_points[..., :, None, :, None, :]
-            + offsets / normalizer[None, :, None, :])
+def make_sampling_locations(reference_points, offsets, spatial_shapes,
+                            num_points: int):
+    """Deformable-DETR's rule, offsets ``(..., Q, H, L, P, 2)``: point
+    references ``(..., Q, L, 2)`` plus the offsets in pixels of each level,
+    or box references ``(..., Q, L, 4)`` (cx, cy, w, h; SOIT's
+    box-refining decoder) plus the offsets over ``num_points`` in half box
+    sizes."""
+    ref = reference_points[..., :, None, :, None, :]
+    if reference_points.shape[-1] == 2:
+        normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
+                                  dtype=offsets.dtype, device=offsets.device)
+        return ref + offsets / normalizer[None, :, None, :]
+    if reference_points.shape[-1] == 4:
+        return ref[..., :2] + offsets / num_points * ref[..., 2:] * 0.5
+    raise ValueError(f"reference_points last dim must be 2 or 4, got "
+                     f"{reference_points.shape[-1]}")
 
 
 def pose_sampling_locations(reference_points, offsets):
@@ -114,7 +120,7 @@ class MultiScaleDeformableAttention(nn.Module):
         weights = self.attention_weights(query).view(B, Q, H, L * P)
         weights = weights.softmax(-1).view(B, Q, H, L, P)
         locations = make_sampling_locations(reference_points, offsets,
-                                            spatial_shapes)
+                                            spatial_shapes, P)
         out = ms_deform_attn(v, spatial_shapes, locations, weights,
                              impl=self.impl)
         return identity + self.drop(self.output_proj(out))
@@ -207,7 +213,7 @@ class MultiFrameDeformableAttention(_MultiFrameBase):
         v = self._project_value(value, key_padding_mask)
         offsets, weights, frame_w = self._frame_heads(query)
         locations = make_sampling_locations(reference_points, offsets,
-                                            spatial_shapes)
+                                            spatial_shapes, self.num_points)
         return identity + self._attend_and_fuse(v, locations, weights,
                                                 frame_w, spatial_shapes)
 

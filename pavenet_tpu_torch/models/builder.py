@@ -1,18 +1,27 @@
 """Config dict -> detector (as ``pavenet_tpu/models/builder.py``: the
 VideoPoseV1, VideoPoseV2 and PETR paths, a ResNet backbone with frozen or
-trainable BatchNorm, a Swin Transformer or an HRNet, and the activation
-dtype).
+trainable BatchNorm, a Swin Transformer or an HRNet, SOIT and DK-DETR, and
+the activation dtype).
 
 The PETR mapping follows the JAX builder's: a ``PETRHead`` defaults to
 T=1, K=17 and L1 keypoint losses, takes its decoder queries from the
 learned embedding alone and detaches the reference points between decoder
 layers; ``with_heatmap`` follows the ``loss_hm`` weight; rescoring and
 OKS-NMS follow ``test_cfg`` (default: on for the video head, off for
-PETR's)."""
+PETR's).
+
+SOIT and DK-DETR follow the JAX ``_build_soit``: a ResNet only, ``norm_eval``
+from the backbone (DK-DETR trains its BatchNorm), the loss and cost
+weights from the config, DK-DETR's ``text_encoder.text_dim`` and
+``temperature``. Like the JAX builder it reads neither
+``model.output_mask`` (the DK-DETR test configs set it False; masks are
+always predicted) nor ``ffn_dropout`` or ``frozen_stages`` (0.1 and 1, the
+JAX module's fixed values and every config's)."""
 from __future__ import annotations
 
 import torch
 
+from .detectors.soit import SOITDetector
 from .detectors.videopose import VideoPoseDetector
 
 KNOWN_SCOPES = ("opera", "mmdet", "mmcv", "pavenet", "torch")
@@ -64,21 +73,68 @@ def _loss_weight(head, key, default):
     return head.get(key, {}).get("loss_weight", default)
 
 
+def _build_soit(cfg: dict, impl: str, dtype: torch.dtype) -> SOITDetector:
+    head = cfg.get("bbox_head", {})
+    backbone = cfg.get("backbone", {})
+    if _type_name(backbone, "ResNet") != "ResNet":
+        raise KeyError("SOIT and DK-DETR take a ResNet backbone only")
+    transformer = head.get("transformer", {})
+    assigner = (cfg.get("train_cfg") or {}).get("assigner", {})
+
+    def cost_weight(name, default):
+        return assigner.get(name, {}).get("weight", default)
+
+    dk = {}
+    if _type_name(cfg) == "DKDETR":
+        dk = dict(cls_emb_dim=cfg.get("text_encoder", {}).get("text_dim",
+                                                               512),
+                  temperature=cfg.get("temperature", 0.05))
+    enc = transformer.get("encoder", {})
+    enc_layers = enc.get("transformerlayers", {})
+    return SOITDetector(
+        norm_eval=backbone.get("norm_eval", True), **dk,
+        num_classes=head.get("num_classes", 80),
+        num_query=head.get("num_query", 300),
+        max_gt=head.get("max_gt", 30),
+        backbone_depth=backbone.get("depth", 50),
+        embed_dims=enc_layers.get("attn_cfgs", {}).get("embed_dims", 256),
+        feedforward_channels=enc_layers.get("feedforward_channels", 1024),
+        num_encoder_layers=enc.get("num_layers", 6),
+        num_decoder_layers=transformer.get("decoder", {}).get("num_layers",
+                                                              6),
+        mask_channels=transformer.get("mask_channels", 8),
+        dynamic_params_dims=head.get("dynamic_params_dims", 441),
+        loss_cls_weight=_loss_weight(head, "loss_cls", 2.0),
+        loss_bbox_weight=_loss_weight(head, "loss_bbox", 5.0),
+        loss_iou_weight=_loss_weight(head, "loss_iou", 2.0),
+        dice_mask_loss_weight=head.get("dice_mask_loss_weight", 8.0),
+        bce_mask_loss_weight=head.get("bce_mask_loss_weight", 2.0),
+        cls_cost_weight=cost_weight("cls_cost", 2.0),
+        reg_cost_weight=cost_weight("reg_cost", 5.0),
+        iou_cost_weight=cost_weight("iou_cost", 2.0),
+        max_per_img=(cfg.get("test_cfg") or {}).get("max_per_img", 100),
+        impl=impl, dtype=dtype)
+
+
 def build_detector(cfg: dict, impl: str = "auto",
-                   dtype: torch.dtype = torch.float32) -> VideoPoseDetector:
-    """Build the pose detector from a reference-style model config, in
-    activation dtype ``dtype`` (see ``config.resolve_act_dtype``).
+                   dtype: torch.dtype = torch.float32):
+    """Build the detector (``VideoPoseDetector`` or ``SOITDetector``) from
+    a reference-style model config, in activation dtype ``dtype`` (see
+    ``config.resolve_act_dtype``).
 
     ``encoder.mode`` is 'deformable' (the default) or 'windowed';
     VideoPoseV2 trains with backbone and neck frozen. Raises on what the
-    port does not have: another detector (SOIT, DK-DETR, InsPose), backbone
-    or head, another encoder mode, and a keypoint loss other than RLE and
-    L1. The neck takes its input widths from the backbone.
+    port does not have: another detector (InsPose), backbone or head,
+    another encoder mode, and a keypoint loss other than RLE and L1. The
+    neck takes its input widths from the backbone.
     """
     det_type = _type_name(cfg)
+    if det_type in ("SOIT", "DKDETR"):
+        return _build_soit(cfg, impl, dtype)
     if det_type not in ("VideoPoseV1", "VideoPoseV2", "PETR"):
         raise KeyError(f"unsupported detector type {det_type!r} (the port "
-                       "has VideoPoseV1, VideoPoseV2 and PETR)")
+                       "has VideoPoseV1, VideoPoseV2, PETR, SOIT and "
+                       "DKDETR)")
     backbone = _backbone_kwargs(cfg.get("backbone", {}))
     head = cfg.get("bbox_head", {})
     head_type = _type_name(head, "PETRHead" if det_type == "PETR"

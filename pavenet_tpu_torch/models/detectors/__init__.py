@@ -1,3 +1,4 @@
+from .soit import SOITDetector
 from .videopose import VideoPoseDetector
 
-__all__ = ["VideoPoseDetector"]
+__all__ = ["SOITDetector", "VideoPoseDetector"]

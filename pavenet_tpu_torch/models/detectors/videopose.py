@@ -123,6 +123,25 @@ def lecun_normal_(tensor: torch.Tensor, generator: torch.Generator):
                           generator=generator)
 
 
+@torch.no_grad()
+def jax_like_init_(model: nn.Module, generator: torch.Generator):
+    """Random weights that follow the JAX initialisers wherever those fix a
+    value (spoke offset biases, zero-init kernels, the cls prior bias,
+    ``normal(1.0)`` embeddings, identity BatchNorm): LeCun-normal kernels
+    and zero biases, unit norms, then each module's ``init_fixed_``."""
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+    for m in model.modules():
+        if hasattr(m, "init_fixed_"):
+            m.init_fixed_(generator)
+
+
 class VideoPoseDetector(nn.Module):
     """Flagship video model (T=3, K=15, R50); ``backbone_type`` 'swin'
     takes a Swin Transformer (Swin-L by default), 'hrnet' an HRNet
@@ -219,19 +238,8 @@ class VideoPoseDetector(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
         """Random weights that follow the JAX initialisers wherever those fix
-        a value (spoke offset biases, zero-init kernels, the cls prior bias,
-        ``normal(1.0)`` embeddings, identity BatchNorm)."""
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d)):
-                lecun_normal_(m.weight, generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
-            elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
-        for m in self.modules():
-            if hasattr(m, "init_fixed_"):
-                m.init_fixed_(generator)
+        a value (``jax_like_init_``)."""
+        jax_like_init_(self, generator)
 
     # ------------------------------------------------------------------
     def extract_feats(self, img, train: bool = False):

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .detectors.soit import SOITDetector
 from .detectors.videopose import VideoPoseDetector
 
 
@@ -44,6 +45,18 @@ def petr_swinl_coco(**overrides) -> VideoPoseDetector:
     (``configs/petr/petr_swin-l-p4-w7-224-22kto1k_16x1_100e_coco.py``)."""
     return VideoPoseDetector(**{**PETR_OPTIONS, "backbone_type": "swin",
                                 **overrides})
+
+
+def soit_r50_coco(**overrides) -> SOITDetector:
+    """SOIT R50 (``configs/soit/soit_r50_16x2_50e_coco.py``): 80 classes,
+    300 queries, 6 encoder and 6 decoder layers, 30 GT slots, 100
+    detections, mask loss weights dice 8 and BCE 2."""
+    kwargs = dict(num_classes=80, num_query=300, max_gt=30,
+                  backbone_depth=50, embed_dims=256, num_encoder_layers=6,
+                  num_decoder_layers=6, max_per_img=100,
+                  dice_mask_loss_weight=8.0, bce_mask_loss_weight=2.0)
+    kwargs.update(overrides)
+    return SOITDetector(**kwargs)
 
 
 def dummy_clip_batch(rng: np.random.RandomState, batch_size: int = 1,

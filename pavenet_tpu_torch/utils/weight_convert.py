@@ -20,10 +20,15 @@ renamed and laid out by fixed rules:
 The fused per-frame ``sampling_offsets``/``attention_weights`` Dense layers
 stay one Linear, output order unchanged. The RealNVP flows (``enc_flow``,
 ``dec_flow``, ``flow``), PETR's heatmap branch (``head.fc_hm``,
-``head.hm_encoder_layer``) and HRNet's modules (``stem1/conv``,
+``head.hm_encoder_layer``), HRNet's modules (``stem1/conv``,
 ``stage{s}_module{m}/branch{b}_block{k}``, ``fuse{i}_{j}_conv/bn``,
-``fuse{i}_{j}_down{t}``, ``transition{s}_{b}``) convert like any other
-tree.
+``fuse{i}_{j}_down{t}``, ``transition{s}_{b}``) and SOIT's and DK-DETR's
+top-level tree (``encoder_layer{i}``, ``seg_encoder_layer``,
+``mask_trans(_norm)``, ``enc_output(_norm)``, ``pos_trans(_norm)``,
+``dec_self_attn{i}``, ``dec_cross_attn{i}``, ``dec_norm{1,2,3}_{i}``,
+``dec_ffn{i}``, ``cls_branch{i}``, ``reg_branch{i}``, ``seg_branch{i}``,
+``level_embeds``; a SOIT init makes no train-only subtree) convert like
+any other tree.
 """
 from __future__ import annotations
 

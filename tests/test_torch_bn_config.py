@@ -187,7 +187,7 @@ def test_builder_builds_the_synthetic_recipe_and_v2():
     jcfg["type"] = "VideoPoseV2"
     assert build_detector(cfg.model).freeze_backbone_neck is True
     assert jbuilder.build_detector(jcfg).freeze_backbone_neck is True
-    cfg.model.type = "SOIT"
+    cfg.model.type = "InsPose"
     with pytest.raises(KeyError, match="detector type"):
         build_detector(cfg.model)
 

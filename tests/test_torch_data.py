@@ -250,7 +250,7 @@ def test_loader_batch_feeds_the_model_like_a_dummy_batch(scenes):
         {k: torch.from_numpy(batch[k]) for k in ("img", "img_shape")})["img"])
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "pavenet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pavenet_tpu")
 
 
 def imported_roots(path):
@@ -266,11 +266,15 @@ def imported_roots(path):
 
 def test_port_imports_nothing_of_jax():
     """No file of the port, nor ``chip_smoke.py``, imports jax, jaxlib,
-    flax, orbax or the JAX package."""
+    flax, optax, orbax or the JAX package."""
     files = sorted(glob.glob(os.path.join(
         REPO, "pavenet_tpu_torch/**/*.py"), recursive=True))
     files.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(files) > 60
+    assert {os.path.join(REPO, "pavenet_tpu_torch", f) for f in (
+        "models/detectors/soit.py", "models/text_encoder.py",
+        "core/eval/coco_det_eval.py", "core/eval/lvis_eval.py",
+        "core/eval/voc_eval.py")} <= set(files)
     bad = [f"{os.path.relpath(f, REPO)}:{line} imports {root}"
            for f in files for root, line in imported_roots(f)
            if root in FORBIDDEN]

@@ -10,7 +10,8 @@ package, on the CPU.
   check's ``BF16_STAGE_TOL``).
 - The port's builder on the meta device: every config under
   ``configs/petr/`` and ``configs/petr/pretrained/`` builds with no JAX;
-  the SOIT, DK-DETR and InsPose configs still raise.
+  the InsPose config still raises (SOIT and DK-DETR build:
+  ``tests/test_torch_soit_parts.py``).
 - Four full-width configs (R50 PETR, HRNet-W48 PETR, Swin-L PETR on
   CrowdPose, HRNet-W48 video pretraining at T=3): the port's state dict has
   every key and shape of ``jax.eval_shape`` of the JAX train-mode init,
@@ -96,11 +97,9 @@ def test_every_petr_config_builds():
         assert model.head.with_heatmap == petr, path
         assert (model.with_rescoring, model.with_nms) == (not petr,) * 2
         assert model.head.detach_decoder_refs == petr, path
-    for path in ("configs/soit/soit_r50_16x2_50e_coco.py",
-                 "configs/dk-detr/dkd_r50_70e_lvis.py",
-                 "configs/inspose/inspose_r50_8x4_3x_coco.py"):
-        with pytest.raises(KeyError, match="unsupported detector type"):
-            build_detector(Config.fromfile(os.path.join(REPO, path)).model)
+    with pytest.raises(KeyError, match="unsupported detector type"):
+        build_detector(Config.fromfile(os.path.join(
+            REPO, "configs/inspose/inspose_r50_8x4_3x_coco.py")).model)
 
 
 def test_full_width_configs_build_with_the_jax_tree():
