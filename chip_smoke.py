@@ -7,7 +7,9 @@ multi-scale test-time augmentation, the distillation CLI, the PETR
 family (PETR R50 and HRNet-W48 on COCO, PETR Swin-L on CrowdPose, HRNet-W48
 video pretraining) with COCO-format data through the CLIs, and SOIT and
 DK-DETR (instance masks, text-embedding classes) with instance scenes and
-a VOC tree through the test CLI.
+a VOC tree through the test CLI; data parallelism over two ranks on the
+card against one process, the CLIs under a launcher, and reference
+``.pth`` checkpoints.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parent DIR   # only phases 1-3 and the comparison
@@ -189,6 +191,36 @@ non-zero):
    every detection kept: 13 launches per image, bbox and segm AP or VOC
    mAP, ms per image.
 
+27. data parallelism on the one card: two ranks (``chip_smoke.py
+   --rank-worker``, gloo on ``cuda:0`` with CUDA tensors, a ``file://``
+   store) against one process on the same global batch, run first and
+   freed: the flagship at 800x1344 (B=1 a rank, B=2 in one process) and the
+   from-scratch recipe at 448x768 (B=2 a rank, B=4; trainable BatchNorm,
+   its accumulation set to 8), 8 mini-steps = one update, dropout 0, TF32
+   off, the ranks on the single process's proposals and matches (near-ties
+   at the initial parameters): every mini-step's losses (all at the
+   initial parameters), the summed accumulated gradient per tensor, the
+   running statistics and the parameters after the update, each worst
+   error printed beside its limit (``DDP_*``) and beside the single
+   process's own spread (the same batch, rows reversed); 88+88 msda
+   launches on each rank. Their times are of two processes sharing one
+   card: a correctness run, not a scaling number.
+28. the CLIs over ranks: ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1`` runs ``tools.train`` on the from-scratch scenes with
+   the NCCL backend for 2 mini-steps (a group at world size 1, the
+   production launcher path; 11+11 launches each); ``tools.test`` at world
+   size 2 over gloo on phase 14's checkpoint gives the detections of world
+   size 1 (phase 14's ``dets_f32.json``), image by image, scores within
+   1e-5 and keypoints within 1e-2 px, 11 launches per clip on each rank.
+29. reference ``.pth`` checkpoints of the flagship, PETR R50 and SOIT R50 at
+   full width: a reference-named state dict of a seed-1 init (the port's
+   rule table, ``utils/reference_convert.py``, inverted) through
+   ``init_detector(checkpoint=...)`` at seed 0 on the card: every entry
+   equal to the source's bit for bit (PETR's sigma branches, absent from
+   its reference tree, the model's init), and ``forward_test`` on a
+   synthetic clip equal to the model built from that state dict, 11 (SOIT
+   13) launches.
+
 Each run sets every launch count to 0 just before it and reads them just
 after. The last two lines are the kernels' JSON record (launches by run,
 bf16 launches beside them) and the contract line
@@ -196,6 +228,7 @@ bf16 launches beside them) and the contract line
 """
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -288,6 +321,47 @@ DET_DATA = CHIP_DATA / "instances"
 DET_CATEGORIES = 3
 # cuda vs torch on SOIT serving: boxes (px), scores, mask probabilities
 SOIT_TOL = dict(boxes=1e-2, scores=1e-4, masks=1e-3)
+# phases 27-29: two ranks on the one card (gloo) against one process on
+# the same global batch, 8 mini-steps = one update, dropout 0, TF32 off:
+# the flagship at B=1 a rank, the from-scratch recipe (trainable
+# BatchNorm) at B=2 a rank with its accumulation set to 8, so that every
+# mini-step's loss is at the initial parameters
+DDP_WORLD = 2
+DDP_RUNS = (("flagship", CONFIG, (800, 1344), 1, {}, 1e-2),
+            ("synthetic", SYNTHETIC_CONFIG, SYNTHETIC_HW, 2,
+             {"optimizer_config.cumulative_iters": TRAIN_STEPS}, 3e-2))
+NO_DROPOUT = {
+    "model.bbox_head.transformer.encoder.transformerlayers.ffn_dropout": 0.0}
+# losses: |a - b| within 1e-4 + 1e-4 |a| (tests/test_parallel.py);
+# running statistics within 1e-4 of their largest; parameters after the
+# update within twice their lr and two float32 spacings (the sign flips
+# that tests/test_parallel.py explains). The summed gradient, per tensor,
+# within the run's limit (last above) of its largest |g|, that largest
+# taken at least 1e-6 of the largest |g| of any tensor (a tensor whose
+# gradient is zero in exact arithmetic, such as an attention key bias,
+# since softmax ignores a shift common to all keys, holds rounding noise
+# alone), or within ``DDP_SPREAD_FACTOR`` times the single process's own
+# spread, taken tensor by tensor from the same batch with its rows
+# reversed. The sampling offsets take their gradient through the bilinear
+# taps' derivative, which steps where a tap crosses a pixel: a batch of 1
+# and a batch of 2 run other GEMM and convolution kernels, and a location
+# moved by rounding across a pixel in a 300-query decoder layer moves that
+# layer's gradient by about 1/300 of its largest, hence 1e-2 with frozen
+# BatchNorm. With trainable BatchNorm, flax's float32 E[x^2] - E[x]^2
+# moves gradients by up to 2.65e-2 of a tensor's largest (JAX's own
+# float32 against float64, tests/test_torch_trainable_bn.py), hence 3e-2,
+# and moves enough locations that the offsets' gradients differ even
+# within one process when only the order of the batch's rows changes:
+# the spread term holds them
+DDP_LOSS_TOL = (1e-4, 1e-4)
+DDP_GRAD_FLOOR, DDP_STATS_TOL = 1e-6, 1e-4
+DDP_SPREAD_FACTOR = 10
+DDP_TIMEOUT_S = 600
+CLI_DDP_STEPS = 2
+# the reference .pth loads: name, config, msda launches of one forward_test
+REFERENCE_RUNS = (("flagship", CONFIG, CALLS_PER_CLIP),
+                  ("petr", PETR_CONFIG, CALLS_PER_CLIP),
+                  ("soit", SOIT_CONFIG, SOIT_CALLS))
 # msda kernel vs plain: max abs error within these fractions of the plain
 # version's max |out| (|grad|), f32 and bf16
 MSDA_FWD_TOL = (("float32", 1e-5), ("bfloat16", 1e-2))
@@ -2381,6 +2455,516 @@ def soit_family(smi, runs, serve_ms, fwd, bwd):
     return masks
 
 
+# ---------------------------------------------------------------------------
+# phases 27-29: data parallelism over ranks and reference checkpoints
+# ---------------------------------------------------------------------------
+def ddp_steps(config, hw, rows, overrides, pins=None, order=None):
+    """``TRAIN_STEPS`` mini-steps (one update) of ``config`` with dropout 0
+    and TF32 off, on this rank's ``rows`` of seeded global batches of
+    ``rows * world_size`` (one process: the whole batch), or on the global
+    batch's rows in ``order`` (a permutation, in one process). ``pins``, the
+    single process's proposals (the head's ``topk_idx``) and matches of
+    each mini-step, are given to a rank for its rows: at the initial
+    parameters both are full of near-ties that rounding can break either
+    way, and the check is of the synchronisation, not of tie-breaking; a
+    rank counts the match sets it would have chosen otherwise. Returns the
+    losses of each mini-step, the summed accumulated gradient (captured
+    where ``apply_update`` all-reduces it), the parameters after the update
+    with their group's lr, trainable BatchNorm's running statistics, the
+    proposals and matches used, the launches, the wall time and the peak
+    memory."""
+    import numpy as np
+    import torch
+    from pavenet_tpu_torch.apis import init_trainer, train_step
+    from pavenet_tpu_torch.config import Config
+    from pavenet_tpu_torch.models.detectors import videopose
+    from pavenet_tpu_torch.models.zoo import dummy_clip_batch
+    from pavenet_tpu_torch.parallel import dist
+
+    cfg = Config.fromfile(str(ROOT / config))
+    cfg.merge_from_dict(dict(NO_DROPOUT, **overrides))
+    tf32(False)
+    state = init_trainer(cfg, device="cuda", seed=0)
+    model = state.model
+    if state.accumulate_steps != TRAIN_STEPS:
+        raise AssertionError(f"{config}: {state.accumulate_steps} mini-steps "
+                             f"an update")
+    rank, world = dist.rank(), dist.world_size()
+    mine = np.asarray(order if order is not None
+                      else range(rank * rows, (rank + 1) * rows))
+    rng = np.random.RandomState(0)
+    batches = []
+    for _ in range(TRAIN_STEPS):
+        b = dummy_clip_batch(rng, len(mine) * world, model.num_frames,
+                             height=hw[0], width=hw[1],
+                             num_keypoints=model.num_keypoints,
+                             max_gt=state.max_gt, train=True)
+        batches.append({k: v[mine] for k, v in b.items()})
+    used = dict(topk=[], match=[], summed=None, own_match_differ=0)
+    forward_outputs, assign = model.forward_outputs, videopose.hungarian_assign
+    all_reduce_grads = dist.all_reduce_grads
+
+    def outputs(*args, topk_idx=None, **kwargs):
+        if pins is not None:
+            topk_idx = pins["topk"][len(used["topk"])][mine].cuda()
+        outs = forward_outputs(*args, topk_idx=topk_idx, **kwargs)
+        used["topk"].append(outs["topk_idx"].cpu())
+        return outs
+
+    def match(costs, gt_valid):
+        own = assign(costs, gt_valid)
+        if pins is not None:
+            pinned = [q[mine].to(gt_valid.device)
+                      for q in pins["match"][len(used["match"])]]
+            used["own_match_differ"] += sum(
+                not torch.equal(a, b) for a, b in zip(own, pinned))
+            own = pinned
+        used["match"].append([q.cpu() for q in own])
+        return own
+
+    def capture(tensors):
+        out = all_reduce_grads(tensors)
+        used["summed"] = [t.detach().clone() for t in out]
+        return out
+
+    model.forward_outputs = outputs
+    videopose.hungarian_assign = match
+    dist.all_reduce_grads = capture
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        losses = [{k: v.item() for k, v in train_step(state, b).items()}
+                  for b in batches]
+        torch.cuda.synchronize()
+    finally:
+        del model.forward_outputs
+        videopose.hungarian_assign = assign
+        dist.all_reduce_grads = all_reduce_grads
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    tf32(True)
+    if state.updates != 1:
+        raise AssertionError(f"{state.updates} updates")
+    lr = {id(p): g["lr"] for g in state.optimizer.param_groups
+          for p in g["params"]}
+    named = list(model.named_parameters())
+    return dict(losses=losses, launches=launches, wall_s=wall,
+                peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                grads={n: g for (n, _), g in zip(named, used["summed"])},
+                params={n: p.detach() for n, p in named},
+                lr={n: lr.get(id(p), 0.0) for n, p in named},
+                stats=bn_stats(model), topk=used["topk"],
+                match=used["match"],
+                own_match_differ=used["own_match_differ"])
+
+
+def ddp_errors(ref, got, grad_tol=None):
+    """Each quantity's worst error against the single process's, with
+    where it sits: losses over their limit (``1e-4 + 1e-4 |a|``); the
+    summed gradient per tensor over its largest |g| (at least
+    ``DDP_GRAD_FLOOR`` of the largest of any tensor), and, given
+    ``grad_tol`` and the single process's own spread per tensor
+    (``ref['spread']``), over the larger of ``grad_tol`` times that and
+    ``DDP_SPREAD_FACTOR`` times the spread; the running statistics per
+    tensor over their largest; the parameters after the update over twice
+    their group's lr plus two float32 spacings of the parameter (AdamW's
+    first update moves an element by about its lr times the sign of g:
+    where g sits at rounding level the sign may flip)."""
+    loss = max((abs(a - g[k]) / (DDP_LOSS_TOL[0] + DDP_LOSS_TOL[1] * abs(a)),
+                f"step {i} {k}: {a:.7g} vs {g[k]:.7g}")
+               for i, (r, g) in enumerate(zip(ref["losses"], got["losses"]))
+               for k, a in r.items())
+    grad, limited, param = (0.0, ""), (0.0, ""), (0.0, "")
+    flipped, total = 0, 0
+    floor = DDP_GRAD_FLOOR * max(g.abs().max().item()
+                                 for g in ref["grads"].values())
+    for n, g in ref["grads"].items():
+        g = g.cuda()
+        scale = max(g.abs().max().item(), floor)
+        err = (got["grads"][n] - g).abs().max().item()
+        grad = max(grad, (err / scale, f"{n} (max |g| {scale:.3e})"))
+        if grad_tol is not None:
+            limit = max(grad_tol * scale,
+                        DDP_SPREAD_FACTOR * ref["spread"][n])
+            limited = max(limited, (err / limit, f"{n} (limit "
+                                    f"{limit:.3e})"))
+        p = ref["params"][n].cuda()
+        d = (got["params"][n] - p).abs()
+        lr = ref["lr"][n]
+        if lr:
+            over = ((d - 2.0 ** -22 * p.abs()) / (2 * lr)).max().item()
+        else:
+            over = 0.0 if d.max().item() == 0 else float("inf")
+        param = max(param, (over, n))
+        flipped += int((d > 1e-7).sum())
+        total += d.numel()
+    stats = max([(rel_err(got["stats"][n], s.cuda()), n)
+                 for n, s in ref["stats"].items()] + [(0.0, "")])
+    return dict(loss_over_limit=loss[0], worst_loss=loss[1],
+                grad_rel=grad[0], worst_grad=grad[1],
+                grad_over_limit=limited[0], worst_grad_limit=limited[1],
+                params_over_2lr=param[0], worst_param=param[1],
+                params_off_1e7=f"{flipped} of {total}", stats_rel=stats[0],
+                worst_stats=stats[1], max_lr=max(ref["lr"].values()),
+                own_match_sets_differ=(f"{got['own_match_differ']} of "
+                                       f"{sum(map(len, got['match']))}"))
+
+
+def ddp_check(name, errs):
+    """The failure message of ``errs`` beyond their limits, or None."""
+    if not (errs["loss_over_limit"] <= 1 and errs["grad_over_limit"] <= 1
+            and errs["params_over_2lr"] <= 1
+            and errs["stats_rel"] <= DDP_STATS_TOL):
+        return f"{name}: two ranks differ from one process: {errs}"
+    return None
+
+
+def spawn_ranks(kind, spec, world, env=None, launcher=()):
+    """``world`` processes of ``chip_smoke.py --rank-worker kind`` (ranks
+    0.. of a ``file://`` store), or one under ``launcher``; waits for all,
+    each within ``DDP_TIMEOUT_S``, kills every one left when one fails,
+    and returns each rank's JSON result."""
+    import shutil
+    import tempfile
+    CHIP_WORK.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix=f"{kind}_", dir=CHIP_WORK))
+    (work / "spec.json").write_text(json.dumps(spec))
+    cmd = [sys.executable, *launcher, str(ROOT / "chip_smoke.py"),
+           "--rank-worker", kind, str(work)]
+    procs = []
+    for r in range(world):
+        penv = dict(os.environ, **(env or {}))
+        if not launcher:
+            penv.update(RANK=str(r), LOCAL_RANK="0", WORLD_SIZE=str(world),
+                        PAVENET_DIST_INIT=f"file://{work}/store",
+                        PAVENET_DIST_TIMEOUT=str(DDP_TIMEOUT_S))
+        # a process group of its own: a failure kills the launcher's
+        # workers too
+        procs.append(subprocess.Popen(
+            cmd, cwd=ROOT, env=penv, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True))
+    logs = [None] * world
+    try:
+        for i, p in enumerate(procs):
+            logs[i] = p.communicate(timeout=DDP_TIMEOUT_S)[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{kind} rank {r} exited {p.returncode}:\n"
+                                 f"{(log or '')[-6000:]}")
+    out = [json.loads((work / f"rank{r}.json").read_text())
+           for r in range(world)]
+    for r, log in enumerate(logs):
+        out[r]["log"] = log
+    shutil.rmtree(work / "store", ignore_errors=True)
+    return out
+
+
+def rank_worker(kind, work):
+    """One rank of a phase 27-28 run (``chip_smoke.py --rank-worker``):
+    ``ddp-train`` the mini-steps of ``ddp_steps`` on its rows, held
+    against the single process's saved result; ``cli-train`` and
+    ``cli-test`` the CLI's ``main`` with the spec's arguments. Writes
+    ``rank<r>.json``."""
+    import torch
+    work = Path(work)
+    spec = json.loads((work / "spec.json").read_text())
+    sys.path.insert(0, str(ROOT))
+    from pavenet_tpu_torch.parallel import dist
+    if kind == "ddp-train":
+        if not dist.maybe_init_distributed(backend="gloo", device="cuda:0"):
+            raise SystemExit("ddp-train: no process group")
+        ref = torch.load(spec["ref"], map_location="cpu", weights_only=True)
+        got = ddp_steps(spec["config"], tuple(spec["hw"]), spec["rows"],
+                        spec["overrides"], pins=ref)
+        result = dict(errors=ddp_errors(ref, got, spec["grad_tol"]),
+                      launches=got["launches"],
+                      wall_s=got["wall_s"], peak_gb=got["peak_gb"],
+                      losses=got["losses"][-1], rank=dist.rank(),
+                      world=dist.world_size(), backend=dist.backend())
+        dist.destroy()
+    else:
+        from pavenet_tpu_torch.tools import test as test_cli
+        from pavenet_tpu_torch.tools import train as train_cli
+        reset_launches()
+        res = (train_cli if kind == "cli-train" else test_cli).main(
+            spec["argv"])
+        result = dict(summary={k: v for k, v in res.items()
+                               if k != "metrics"},
+                      launches=read_launches(),
+                      rank=int(os.environ.get("RANK", 0)))
+    (work / f"rank{result['rank']}.json").write_text(json.dumps(result))
+
+
+def ddp_train(smi):
+    """Phase 27: two ranks on the one card over gloo against one process
+    on the same global batch, the flagship at 800x1344 (B=1 a rank) and
+    the from-scratch recipe at 448x768 (B=2 a rank, trainable BatchNorm).
+    Returns each rank's launches."""
+    import torch
+    runs, failures = {}, []
+    for name, config, hw, rows, overrides, grad_tol in DDP_RUNS:
+        ref = ddp_steps(config, hw, rows * DDP_WORLD, overrides)
+        single = dict(launches=ref.pop("launches"), wall_s=ref.pop("wall_s"),
+                      peak_gb=ref.pop("peak_gb"))
+        ref.pop("own_match_differ")
+        # the single process's own rounding spread, tensor by tensor: the
+        # same global batch with its rows reversed (the same proposals and
+        # matches, permuted)
+        again = ddp_steps(config, hw, rows * DDP_WORLD, overrides, pins=ref,
+                          order=range(rows * DDP_WORLD)[::-1])
+        spread = ddp_errors(ref, again)
+        ref["spread"] = {n: (again["grads"][n] - g).abs().max().item()
+                         for n, g in ref["grads"].items()}
+        del again
+        ref_path = CHIP_WORK / f"ddp_{name}_single.pt"
+        ref_path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({k: ({n: t.cpu() for n, t in v.items()}
+                        if k in ("grads", "params", "stats") else v)
+                    for k, v in ref.items()}, ref_path)
+        del ref
+        torch.cuda.empty_cache()
+        check_launches(f"ddp {name} single process", single["launches"],
+                       {"msda_fwd": CALLS_PER_CLIP,
+                        "msda_bwd": CALLS_PER_CLIP}, TRAIN_STEPS)
+        ranks = spawn_ranks("ddp-train", dict(
+            config=config, hw=hw, rows=rows, overrides=overrides,
+            ref=str(ref_path), grad_tol=grad_tol), DDP_WORLD)
+        ref_path.unlink()
+        for res in ranks:
+            if (res["world"], res["backend"]) != (DDP_WORLD, "gloo"):
+                raise AssertionError(f"ddp {name}: {res}")
+            check_launches(f"ddp {name} rank {res['rank']}",
+                           res["launches"], {"msda_fwd": CALLS_PER_CLIP,
+                                             "msda_bwd": CALLS_PER_CLIP},
+                           TRAIN_STEPS)
+            failures.append(ddp_check(f"ddp {name} rank {res['rank']}",
+                                      res["errors"]))
+            runs[f"ddp_{name}_rank{res['rank']}"] = res["launches"]
+        print(f"ddp {name}: {config} at {hw[0]}x{hw[1]}, {TRAIN_STEPS} "
+              f"mini-steps (one update), dropout 0, TF32 off: {DDP_WORLD} "
+              f"ranks of B={rows} on one card (gloo, CUDA tensors) against "
+              f"one process of B={rows * DDP_WORLD}; worst errors "
+              + "; ".join(f"rank {res['rank']} {json.dumps(res['errors'])}"
+                          for res in ranks)
+              + f" (limits: loss_over_limit, grad_over_limit and "
+              f"params_over_2lr 1, the loss limit {DDP_LOSS_TOL[0]} + "
+              f"{DDP_LOSS_TOL[1]} |a|, the gradient limit the larger of "
+              f"{grad_tol} of the tensor's largest and {DDP_SPREAD_FACTOR} "
+              f"times the single process's own spread; stats_rel "
+              f"{DDP_STATS_TOL}); the single process against itself with the "
+              f"batch's rows reversed: {json.dumps(spread)}; launches per "
+              f"rank {json.dumps(ranks[0]['launches'])}; correctness run, not "
+              f"a scaling number (two processes share one card): "
+              f"{TRAIN_STEPS} mini-steps in {single['wall_s']:.2f} s (one "
+              f"process, peak {single['peak_gb']:.2f} GiB), "
+              + ", ".join(f"rank {res['rank']} {res['wall_s']:.2f} s (peak "
+                          f"{res['peak_gb']:.2f} GiB)" for res in ranks)
+              + f" | {smi}", flush=True)
+    failures = [f for f in failures if f]
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return runs
+
+
+def dist_cli(smi):
+    """Phase 28: ``tools.train`` under ``torch.distributed.run`` at world
+    size 1 with the NCCL backend (the production launcher path), and
+    ``tools.test`` at world size 2 over gloo on phase 14's checkpoint
+    against its world-size-1 detections. Returns each run's launches."""
+    import numpy as np
+    config = str(ROOT / SYNTHETIC_CONFIG)
+    opts = e2e_options()
+    runs = {}
+    work = CHIP_WORK / "nccl"
+    res, = spawn_ranks("cli-train", dict(argv=[
+        config, "--work-dir", str(work), "--max-steps", str(CLI_DDP_STEPS),
+        "--no-validate", "--dist-backend", "nccl"] + opts), 1,
+        env=dict(PAVENET_DISTRIBUTED="1"),
+        launcher=("-m", "torch.distributed.run", "--standalone",
+                  "--nproc_per_node", "1"))
+    s = res["summary"]
+    if not (s["world_size"] == 1 and s["backend"] == "nccl"
+            and s["steps_run"] == CLI_DDP_STEPS
+            and Path(s["checkpoint"]).exists()):
+        raise AssertionError(f"train CLI under torch.distributed.run: {s}")
+    check_launches("train CLI under torch.distributed.run", res["launches"],
+                   {"msda_fwd": CALLS_PER_CLIP, "msda_bwd": CALLS_PER_CLIP},
+                   CLI_DDP_STEPS)
+    runs["cli_nccl_train"] = res["launches"]
+    print(f"cli_nccl_train: python -m torch.distributed.run --standalone "
+          f"--nproc_per_node 1 ... tools.train --dist-backend nccl: world "
+          f"size {s['world_size']}, backend {s['backend']}, "
+          f"{s['steps_run']} mini-steps, {s['updates']} updates, checkpoint "
+          f"{os.path.basename(s['checkpoint'])}, losses "
+          f"{json.dumps(s['losses'])}; launches "
+          f"{json.dumps(res['launches'])}; {s['step_ms']:.2f} ms per "
+          f"mini-step (median, host clock) | {smi}", flush=True)
+
+    ckpt = CHIP_WORK / f"step_{E2E_RESUMED_STEPS}.pt"
+    one = json.loads((CHIP_WORK / "dets_f32.json").read_text())
+    out = CHIP_WORK / "dets_ws2.json"
+    ranks = spawn_ranks("cli-test", dict(argv=[
+        config, str(ckpt), "--device", "cuda:0", "--dist-backend", "gloo",
+        "--out", str(out)] + opts), DDP_WORLD)
+    two = json.loads(out.read_text())
+    by_image = {}
+    for name, dets in (("one", one), ("two", two)):
+        for d in dets:
+            by_image.setdefault(d["image_id"], {}).setdefault(
+                name, []).append(d)
+    score_err, kpt_err = 0.0, 0.0
+    for image, pair in by_image.items():
+        a, b = pair.get("one", []), pair.get("two", [])
+        if len(a) != len(b):
+            raise AssertionError(f"test CLI over 2 ranks: image {image} has "
+                                 f"{len(b)} detections, one process "
+                                 f"{len(a)}")
+        for x, y in zip(a, b):
+            score_err = max(score_err, abs(x["score"] - y["score"]))
+            kpt_err = max(kpt_err, float(np.abs(
+                np.asarray(x["keypoints"]) - np.asarray(y["keypoints"]))
+                .max()))
+    if not (score_err <= 1e-5 and kpt_err <= 1e-2 and len(one) == len(two)):
+        raise AssertionError(f"test CLI over 2 ranks: scores within "
+                             f"{score_err}, keypoints within {kpt_err}")
+    clips = 0
+    for res in ranks:
+        n = res["summary"]["clips"]
+        clips += n
+        check_launches(f"test CLI rank {res['rank']}", res["launches"],
+                       {"msda_fwd": CALLS_PER_CLIP}, n)
+        runs[f"cli_test_ws2_rank{res['rank']}"] = res["launches"]
+    metrics = ranks[0]["summary"]
+    print(f"cli_test_ws2: tools.test on {ckpt.name} over {DDP_WORLD} ranks "
+          f"(gloo, one card): {clips} clips ("
+          + ", ".join(f"rank {r['rank']} {r['summary']['clips']}"
+                      for r in ranks)
+          + f"), {len(two)} detections gathered, equal to one process's "
+          f"{len(one)} by image: scores within {score_err:.3e} (limit "
+          f"1e-5), keypoints within {kpt_err:.3e} px (limit 1e-2); rank 0 "
+          f"wrote {out.name}, {metrics['detections']} detections; launches "
+          f"per rank " + json.dumps([r["launches"] for r in ranks])
+          + f" | {smi}", flush=True)
+    return runs
+
+
+def invert_rules(rules, state, seed=0):
+    """The reference-named state dict that ``rules``
+    (``utils/reference_convert.py``) turn into ``state``; a port key the
+    model lacks (the video tree's ``fc_hm``) gets seeded values."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    out = {}
+    for rule in rules:
+        vals = []
+        for p in rule.ports:
+            if p not in state:
+                K, C2 = state["head.refine_query_embedding"].shape
+                shape = (K, C2 // 2) if p.endswith("weight") else (K,)
+                state = dict(state, **{p: torch.from_numpy(
+                    rng.randn(*shape).astype(np.float32))})
+            vals.append(state[p])
+        if rule.kind == "copy":
+            out[rule.refs[0]] = vals[0]
+        elif rule.kind == "cat":
+            out.update(zip(rule.refs, vals[0].chunk(len(rule.refs), 0)))
+        elif rule.kind == "split":
+            out[rule.refs[0]] = torch.cat(vals, 0)
+        else:
+            perm, axis = rule.arg
+            inv = torch.empty_like(vals[0])
+            inv.index_copy_(axis, torch.as_tensor(perm), vals[0])
+            out[rule.refs[0]] = inv
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def reference_pth(smi):
+    """Phase 29: a reference-named ``.pth`` of the flagship, PETR R50 and
+    SOIT R50 at full width (the port's seed-1 init through the inverted
+    rule table) loaded by ``init_detector(checkpoint=...)`` on the card
+    (seed 0, so that a key left unloaded would show): the state dict equal
+    to the source bit for bit (PETR's sigma branches, which the reference
+    tree lacks, the model's own seed-0 init), and ``forward_test`` on a
+    synthetic clip equal to a model built from that state dict. Returns
+    the launches."""
+    import torch
+    from pavenet_tpu_torch.apis.inference import (build_model, host_batch,
+                                                  init_detector)
+    from pavenet_tpu_torch.models.detectors.soit import SOITDetector
+    from pavenet_tpu_torch.utils.reference_convert import (
+        convert_reference_state_dict, reference_rules)
+
+    runs = {}
+    folder = CHIP_WORK / "reference"
+    folder.mkdir(parents=True, exist_ok=True)
+    for name, config, calls in REFERENCE_RUNS:
+        path = str(ROOT / config)
+        src = build_model(path, seed=1)
+        state = src.state_dict()
+        rules, _ = reference_rules(src)
+        ref = invert_rules(rules, state)
+        pth = folder / f"{name}.pth"
+        torch.save({"meta": {"source": "seed 1"}, "state_dict": ref}, pth)
+        converted, unused = convert_reference_state_dict(src, ref,
+                                                         strict=True)
+        t0 = time.perf_counter()
+        model = init_detector(path, device="cuda", seed=0,
+                              checkpoint=str(pth))
+        load_s = time.perf_counter() - t0
+        built = build_model(path, seed=0)
+        own = {k: v.clone() for k, v in built.state_dict().items()}
+        loaded = model.state_dict()
+        lacking = [k for k in loaded if k not in converted]
+        wrong = [k for k, v in loaded.items()
+                 if not torch.equal(v.cpu(), state[k] if k in converted
+                                    else own[k])]
+        if wrong or unused or (bool(lacking) != (name == "petr")):
+            raise AssertionError(f"{name}.pth: {len(wrong)} entries differ "
+                                 f"({wrong[:5]}), unused {unused[:5]}, "
+                                 f"kept from the init {lacking[:5]}")
+        built.load_state_dict({k: state[k] for k in converted if k in own},
+                              strict=False)
+        built = built.cuda().eval()
+        clip = synthetic_clips(frames=model.num_frames)[1]
+        batch = {k: torch.from_numpy(v).cuda() for k, v in host_batch(
+            clip, model.num_frames, (1333, 800)).items()}
+        if isinstance(model, SOITDetector):
+            batch["img"] = batch["img"][:, 0]
+        reset_launches()
+        with torch.inference_mode():
+            out = model.forward_test(batch)
+        torch.cuda.synchronize()
+        runs[f"pth_{name}"] = read_launches()
+        check_launches(f"{name}.pth forward_test", runs[f"pth_{name}"],
+                       {"msda_fwd": calls}, 1)
+        with torch.inference_mode():
+            want = built.forward_test(batch)
+        err = max((out[k].float() - want[k].float()).abs().max().item()
+                  for k in want)
+        if not all(torch.equal(out[k], want[k]) for k in want):
+            raise AssertionError(f"{name}.pth: forward_test differs from the "
+                                 f"model built from its state dict by {err}")
+        print(f"pth_{name}: {config}: a reference-named state dict of "
+              f"{len(ref)} keys ({len(rules)} rules) through "
+              f"init_detector(checkpoint=...) in {load_s:.2f} s: all "
+              f"{len(loaded)} entries equal to the source's bit for bit "
+              f"({len(lacking)} kept from the init), no unused key; "
+              f"forward_test on the card equal to the model built from the "
+              f"state dict (max abs err {err:.3e}); launches "
+              f"{json.dumps(runs[f'pth_{name}'])} | {smi}", flush=True)
+        del model, built, src, ref
+        torch.cuda.empty_cache()
+    return runs
+
+
 def kernel_record(name, records, launches, replaces, **extra):
     """The kernel's line: ``ms``, ``plain_ms``, ``library_ms`` and
     ``bound_ms`` of one main-path call (msda: the encoder call on
@@ -2412,7 +2996,11 @@ def main(argv=None):
                         help="a checkout of an earlier commit: build its msda "
                         "kernels and time them against this tree's on the "
                         "encoder inputs (only that phase runs)")
+    parser.add_argument("--rank-worker", nargs=2, metavar=("KIND", "DIR"),
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.rank_worker:
+        return rank_worker(*args.rank_worker)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is False)")
@@ -2555,6 +3143,16 @@ def main(argv=None):
     torch.cuda.empty_cache()
     # 26. instance scenes and a VOC tree through the test CLI
     runs.update(det_cli(smi))
+    torch.cuda.empty_cache()
+    # 27. two ranks on the one card against one process: the flagship and
+    # the from-scratch recipe
+    runs.update(ddp_train(smi))
+    torch.cuda.empty_cache()
+    # 28. the train CLI under torch.distributed.run (NCCL) and the test CLI
+    # over two ranks
+    runs.update(dist_cli(smi))
+    # 29. reference .pth checkpoints of the flagship, PETR R50 and SOIT R50
+    runs.update(reference_pth(smi))
     torch.cuda.empty_cache()
     print("serve forward_test ms/clip, f32 / bf16: " + ", ".join(
         f"{m} {serve_ms[(m, 'f32')]:.2f} / "

@@ -20,6 +20,13 @@ teacher's activation dtype. A batch may be a ``dummy_clip_batch`` or a
 state's ``img_norm``); ``DistillState.state_dict`` is what
 ``utils/checkpoint.py`` saves, so the student's checkpoint serves
 ``tools.test``.
+
+Over ``torch.distributed`` ranks each rank takes its rows of the batch
+with the teacher replicated, as the JAX step shards the batch: the MSE
+and ``rel`` divide by the global batch's valid tokens and energy, the
+gradient is summed over the ranks before the clip (a parameter the loss
+did not reach counts as zeros), and the returned values are the global
+batch's on every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from typing import Dict, Mapping, Union
 import torch
 
 from ..models.detectors.videopose import VideoPoseDetector
+from ..parallel import dist
 from .inference import build_model
 from .prep import IMG_NORM_MEAN, IMG_NORM_STD
 from .train import model_feed
@@ -78,14 +86,16 @@ def memory_distill_loss(student_memory: torch.Tensor,
 
     mask_flatten (B, N), True = padding; padded tokens are left out. As in
     the JAX package the MSE divides by the valid tokens of one frame times
-    C, while the sum runs over all T frames.
+    C, while the sum runs over all T frames. Over ranks both denominators
+    are the global batch's, so the ranks' values add up to its MSE and
+    ``rel``.
     """
     mem_s = student_memory.float()
     mem_t = teacher_memory.detach().float()
     valid = (~mask_flatten)[:, None, :, None].float()
     se = ((mem_s - mem_t) ** 2 * valid).sum()
-    mse = se / (valid.sum() * mem_s.shape[-1] + 1e-6)
-    rel = se / ((mem_t ** 2 * valid).sum() + 1e-6)
+    mse = se / (dist.global_sum(valid.sum()) * mem_s.shape[-1] + 1e-6)
+    rel = se / (dist.global_sum((mem_t ** 2 * valid).sum()) + 1e-6)
     return mse, rel
 
 
@@ -145,6 +155,12 @@ def distill_step(state: DistillState,
                                    target["mask_flatten"])
     student.zero_grad(set_to_none=True)
     mse.backward()
+    if dist.active():
+        params = list(student.parameters())
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        dist.all_reduce_grads([p.grad for p in params])
     grads = [p.grad for p in student.parameters() if p.grad is not None]
     norm = torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -155,5 +171,6 @@ def distill_step(state: DistillState,
     state.optimizer.step()
     student.zero_grad(set_to_none=True)
     state.step += 1
-    return {"distill_mse": mse.detach(), "distill_rel": rel.detach(),
-            "grad_norm": norm.detach()}
+    logs = dist.all_reduce_scalars({"distill_mse": mse.detach(),
+                                    "distill_rel": rel.detach()})
+    return dict(logs, grad_norm=norm.detach())

@@ -1,7 +1,9 @@
 """Clip inference API (as ``pavenet_tpu/apis/inference.py``).
 
-``init_detector(config, device, dtype=None)`` -> model on the device, eval
-mode, in the activation dtype of ``dtype`` or the config's ``act_dtype``;
+``init_detector(config, device, dtype=None, checkpoint=None)`` -> model on
+the device, eval mode, in the activation dtype of ``dtype`` or the
+config's ``act_dtype``, with the weights of a reference ``.pth`` or a port
+checkpoint where given;
 ``inference_detector(model, imgs)`` -> detections for one clip, or for one
 image of a detection model (SOIT; DK-DETR with its ``text_feats``). The host
 pipeline (``datasets/pipelines/transforms.py``) is the port's own copy of
@@ -20,6 +22,9 @@ from ..datasets.pipelines.transforms import (
 from ..models.builder import build_detector
 from ..models.detectors.soit import SOITDetector
 from ..utils import weight_convert
+from ..utils.checkpoint import restore_variables
+from ..utils.reference_convert import (load_reference_state_dict,
+                                       load_torch_checkpoint)
 
 
 def build_model(config: Union[str, Mapping], seed: int = 0,
@@ -45,12 +50,30 @@ def build_model(config: Union[str, Mapping], seed: int = 0,
     return model
 
 
+def load_checkpoint(model: torch.nn.Module, checkpoint: str):
+    """Load ``checkpoint`` into ``model``: a reference ``.pth`` through
+    ``utils/reference_convert.py`` (every family the JAX converter covers;
+    the keys the reference tree lacks keep the model's init only for PETR,
+    and the reference's unconverted keys are ignored, as the JAX
+    ``init_detector`` ignores them), else a port checkpoint
+    (``step_N.pt``, ``utils/checkpoint.py``), loaded strictly."""
+    if checkpoint.endswith(".pth"):
+        load_reference_state_dict(model, load_torch_checkpoint(checkpoint))
+    else:
+        model.load_state_dict(restore_variables(checkpoint), strict=True)
+    return model
+
+
 def init_detector(config: Union[str, Mapping], device="cuda", seed: int = 0,
                   variables: Optional[Mapping] = None, impl: str = "auto",
-                  dtype: Optional[str] = None) -> torch.nn.Module:
-    """``build_model`` on ``device``, in eval mode."""
-    return build_model(config, seed, variables, impl,
-                       dtype).to(device).eval()
+                  dtype: Optional[str] = None,
+                  checkpoint: Optional[str] = None) -> torch.nn.Module:
+    """``build_model`` on ``device``, in eval mode, with the weights of
+    ``checkpoint`` where given (``load_checkpoint``)."""
+    model = build_model(config, seed, variables, impl, dtype)
+    if checkpoint is not None:
+        load_checkpoint(model, checkpoint)
+    return model.to(device).eval()
 
 
 def host_batch(imgs, num_frames: int, img_scale=(1333, 800)) -> dict:

@@ -34,6 +34,15 @@ there (``apis/prep.py``, with the mean and std
 of the config's ``train_pipeline_kwargs``). ``TrainState.state_dict``
 holds the whole run (model, optimizer, counts, accumulated gradient, EMA,
 dropout generator) for ``utils/checkpoint.py``.
+
+Over ``torch.distributed`` ranks (``parallel/dist.py``) the step keeps the
+JAX package's global-batch semantics: each rank runs its rows with the
+losses normalised by the global batch and trainable BatchNorm's statistics
+taken over it (``models/``), the accumulated gradient is summed over the
+ranks in one flat buffer before the clip (a parameter no loss reached on a
+rank counts as zeros there, so every rank sends the same buffer), the
+returned losses are summed the same way, and the clip, AdamW and the EMA
+then run identically on every rank.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ import torch.nn as nn
 from ..config import Config
 from ..models.detectors.soit import SOITDetector
 from ..models.layers.transformer import Dropout
+from ..parallel import dist
 from .inference import build_model
 from .prep import IMG_NORM_MEAN, IMG_NORM_STD, device_prep
 
@@ -216,6 +226,30 @@ class TrainState:
                               if sd[k] is not None else None
                               for k in ("acc", "ema"))
         self.generator.set_state(sd["generator"])
+        if dist.world_size() > 1:
+            # the checkpoint holds rank 0's stream: each rank goes on from a
+            # seed drawn from it, offset by its rank
+            draw = torch.randint(2 ** 62, (1,), generator=self.generator,
+                                 device=self.generator.device)
+            self.generator.manual_seed(int(draw) + dist.rank())
+            # and the ranks' summed accumulation (``gather_accumulation``),
+            # which rank 0 alone goes on from
+            if self.acc is not None and dist.rank():
+                self.acc = [torch.zeros_like(a) for a in self.acc]
+
+    def gather_accumulation(self):
+        """Over ranks, before rank 0 saves the state (every rank calls it):
+        the ranks' accumulated gradients summed onto rank 0 and zeroed
+        elsewhere. The update sums them anyway, and the running mean is
+        linear in them, so training goes on unchanged, while rank 0's
+        checkpoint holds the whole accumulation of an update cut by the
+        save."""
+        if self.acc is None or dist.world_size() == 1:
+            return
+        dist.all_reduce_grads(self.acc)
+        if dist.rank():
+            for a in self.acc:
+                a.zero_()
 
 
 def init_trainer(config: Union[str, Mapping], device="cuda", seed: int = 0,
@@ -231,7 +265,14 @@ def init_trainer(config: Union[str, Mapping], device="cuda", seed: int = 0,
     ``steps_per_epoch`` (mini-batches) places the schedule's epoch
     boundaries. ``dtype`` is the activation dtype (as
     ``build_model``; ``tools/train.py --dtype``); parameters and optimizer
-    state stay float32."""
+    state stay float32.
+
+    Over ``torch.distributed`` ranks every rank builds the same init from
+    ``seed``, and rank r's dropout generator is seeded with ``seed + r``:
+    one seed on every rank would repeat the same masks on every rank's
+    rows, where the JAX step draws masks over the global batch, which
+    differ row by row. (The masks therefore differ from one process's on
+    the same global batch; the equality checks run with dropout 0.)"""
     if isinstance(config, str):
         config = Config.fromfile(config)
     model = build_model(config, seed, variables, impl,
@@ -247,7 +288,8 @@ def init_trainer(config: Union[str, Mapping], device="cuda", seed: int = 0,
         backbone_lr_mult=custom.get("backbone", {}).get("lr_mult", 0.1),
         offsets_lr_mult=custom.get("sampling_offsets", {}).get("lr_mult",
                                                                0.1))
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = torch.Generator(device=device).manual_seed(
+        seed + dist.rank())
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
@@ -276,9 +318,11 @@ def to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:
 
 
 def apply_update(state: TrainState):
-    """Clip the accumulated gradient by its global norm (all parameters) and
+    """Sum the accumulated gradient over the ranks (one flat buffer; a
+    no-op in one process), clip it by its global norm (all parameters) and
     take one AdamW step with the scheduled lr of each group."""
     params = list(state.model.parameters())
+    dist.all_reduce_grads(state.acc)
     norm = torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(a) for a in state.acc]))
     scale = torch.where(norm < state.grad_clip, torch.ones_like(norm),
@@ -342,7 +386,8 @@ def update_ema(state: TrainState):
 
 def train_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
     """One mini-batch: forward, backward, ``accumulate`` and the EMA.
-    Returns the detached losses."""
+    Returns the detached losses, over ranks summed into the global batch's
+    (the same on every rank)."""
     model = state.model
     model.train()
     losses = model.forward_train(model_feed(
@@ -351,4 +396,5 @@ def train_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
     losses["loss"].backward()
     accumulate(state)
     update_ema(state)
-    return {k: v.detach() for k, v in losses.items()}
+    return dist.all_reduce_scalars({k: v.detach()
+                                    for k, v in losses.items()})

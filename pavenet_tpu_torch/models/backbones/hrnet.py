@@ -121,6 +121,7 @@ class HRNet(nn.Module):
     def __init__(self, width: int = 48, dtype: torch.dtype = torch.float32):
         super().__init__()
         extra = HRNET_EXTRA[width]
+        self.width = width
         self.stem1 = ConvBN(3, 64, 3, 2, dtype=dtype)
         self.stem2 = ConvBN(64, 64, 3, 2, dtype=dtype)
         _, _, (n1,), (c1,) = extra[0]

@@ -21,6 +21,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..layers.dtype import Conv2d, stats_dtype
+from ...parallel import dist
+from ...parallel.dist import global_sum_grad
 
 ARCH_SETTINGS = {
     18: ("basic", (2, 2, 2, 2)),
@@ -69,6 +71,14 @@ class BatchNorm(nn.Module):
 
     No ``num_batches_tracked``: the JAX tree has none. Gradients flow
     through the batch statistics, as in flax.
+
+    Over ``torch.distributed`` ranks the statistics are the global
+    batch's, as flax takes them under a sharded ``jit``: the per-channel
+    sums of ``x`` and ``x * x`` and the element count are summed over the
+    ranks (``parallel/dist.py::global_sum_grad``, whose backward sums the
+    gradient too), so ranks whose rows differ in shape weigh by their
+    counts and every rank keeps the same running statistics. Not
+    ``nn.SyncBatchNorm``: it needs NCCL and keeps the unbiased variance.
     """
 
     def __init__(self, features: int, eps: float = 1e-5,
@@ -80,11 +90,26 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    @staticmethod
+    def _global_stats(xf):
+        """Mean and biased variance of ``xf`` (N, C, H, W) over the
+        rows of every rank."""
+        C = xf.shape[1]
+        sums = global_sum_grad(torch.cat([
+            xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+            xf.new_full((1,), xf.numel() // C)]))
+        n = sums[2 * C]
+        mean = sums[:C] / n
+        return mean, (sums[C:2 * C] / n - mean * mean).clamp(min=0.0)
+
     def forward(self, x, train: bool = False):
         xf = x.to(stats_dtype(x))
-        if train:
+        if train and dist.active():
+            mean, var = self._global_stats(xf)
+        elif train:
             mean = xf.mean((0, 2, 3))
             var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+        if train:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
@@ -177,6 +202,7 @@ class ResNet(nn.Module):
         super().__init__()
         block_name, stage_blocks = ARCH_SETTINGS[depth]
         block_cls = Bottleneck if block_name == "bottleneck" else BasicBlock
+        self.depth = depth
         self.out_indices = tuple(out_indices)
         self.conv1 = _conv(3, 64, 7, 2, 3, dtype=dtype)
         self.bn1 = make_norm(64, norm_eval or frozen_stages >= 0, dtype)

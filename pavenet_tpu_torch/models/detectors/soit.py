@@ -17,6 +17,9 @@ share. That call is the plain version (``ms_deform_attn_torch``), as the
 JAX package's ``impl='xla'`` there; every other msda call takes the
 model's ``impl``.
 
+Over ``torch.distributed`` ranks the box and mask losses divide by the
+global batch's valid GT count (``parallel/dist.py::global_sum``).
+
 Batch dict (tensors on the model's device):
     img:          (B, H, W, 3) float32, normalised
     img_shape:    (B, 2) int (valid h, w) before padding
@@ -49,6 +52,7 @@ from ..losses import sigmoid_focal_loss
 from ..necks.channel_mapper import ChannelMapper
 from ...core.assigner import hungarian_assign
 from ...ops.ms_deform_attn import ms_deform_attn_torch
+from ...parallel.dist import global_sum
 from .videopose import VideoPoseDetector, jax_like_init_
 
 Shapes = Tuple[Tuple[int, int], ...]
@@ -480,7 +484,7 @@ class SOITDetector(nn.Module):
         which is dropped."""
         B, Q = cls_s.shape[:2]
         valid = batch["gt_valid"]
-        num_pos = valid.sum().float().clamp(min=1.0)
+        num_pos = global_sum(valid.sum().float()).clamp(min=1.0)
         gt_lab = (torch.zeros_like(batch["gt_labels"]) if binary
                   else batch["gt_labels"]).long()
         labels = torch.full((B, Q + 1), self.num_classes, dtype=torch.int64,
@@ -548,7 +552,7 @@ class SOITDetector(nn.Module):
                                  mode="bilinear", align_corners=False,
                                  antialias=True)
         valid = batch["gt_valid"].to(preds.dtype)
-        num_pos = valid.sum().clamp(min=1.0)
+        num_pos = global_sum(valid.sum()).clamp(min=1.0)
         inter = (preds * gt_masks).sum((-1, -2))
         denom = (preds ** 2).sum((-1, -2)) + (gt_masks ** 2).sum((-1, -2))
         dice = 1 - 2 * inter / denom.clamp(min=1e-6)

@@ -16,6 +16,11 @@ argument does; ``freeze_backbone_neck`` (VideoPoseV2) detaches the neck's
 features. ``dtype`` is the activation dtype of backbone, neck and head
 (``models/layers/dtype.py``); parameters stay float32.
 
+Over ``torch.distributed`` ranks each loss divides its rank's rows by the
+normaliser of the global batch (``parallel/dist.py::global_sum``: the
+positives and the visible keypoints of every rank), so the ranks' losses
+add up to the global batch's, as the JAX step computes it in one program.
+
 Batch dict (tensors on the model's device):
     img:          (B, T, H, W, 3) float32, normalised
     img_shape:    (B, 2) int (valid h, w) before padding
@@ -44,6 +49,7 @@ from ..losses import (OKS_SIGMAS, center_focal_loss, oks_loss, rle_loss,
 from ...core.assigner import (PoseTargets, build_pose_targets,
                               hungarian_assign, pose_match_cost)
 from ...ops.nms import box_nms_keep, oks_nms_keep
+from ...parallel.dist import global_sum
 
 # left/right keypoint pairs by keypoint count (COCO, PoseTrack, CrowdPose)
 FLIP_PAIRS_BY_K = {
@@ -344,7 +350,7 @@ class VideoPoseDetector(nn.Module):
 
     def _cls_loss(self, cls_scores, targets: PoseTargets):
         """Focal loss (gamma 2, alpha 0.25) over all queries."""
-        avg = targets.num_pos.sum().clamp(min=1.0)
+        avg = global_sum(targets.num_pos.sum()).clamp(min=1.0)
         return sigmoid_focal_loss(
             cls_scores.reshape(-1, self.num_classes),
             targets.labels.reshape(-1), avg_factor=avg) * self.loss_cls_weight
@@ -371,13 +377,14 @@ class VideoPoseDetector(nn.Module):
             targets.kpt_weights[..., 0].reshape(B * G, -1),
             targets.area_targets.clamp(min=1e-6).reshape(B * G),
             num_keypoints=K, weight=pos_valid.reshape(B * G).to(pred.dtype),
-            avg_factor=targets.num_pos.sum().clamp(min=1.0)) * weight
+            avg_factor=global_sum(targets.num_pos.sum()).clamp(min=1.0)
+        ) * weight
 
     def _set_losses(self, flow, cls_scores, kpt_preds, sigma_preds,
                     targets: PoseTargets, kpt_weight, oks_weight, img_shape):
         """Focal, keypoint and (``oks_weight`` > 0) OKS losses of one
         prediction set; the OKS loss is None where unweighted."""
-        num_valid_kpt = targets.kpt_weights.sum().clamp(min=1.0)
+        num_valid_kpt = global_sum(targets.kpt_weights.sum()).clamp(min=1.0)
         pred = self._gather_pos(kpt_preds, targets)
         sigma = (self._gather_pos(sigma_preds, targets)
                  if self.kpt_loss == "rle" else None)
@@ -440,7 +447,7 @@ class VideoPoseDetector(nn.Module):
         refine_kpts, _, refine_sigmas = head.forward_refine(
             outs["memory"], outs["mask_flatten"], outs["valid_ratios"],
             ref_poses.detach(), outs["spatial_shapes"])
-        num_valid_kpt = last.kpt_weights.sum().clamp(min=1.0)
+        num_valid_kpt = global_sum(last.kpt_weights.sum()).clamp(min=1.0)
         for r in range(refine_kpts.shape[0]):
             losses[f"d{r}.loss_kpt_refine"] = self._kpt(
                 head.flow, refine_kpts[r], refine_sigmas[r], last,

@@ -7,6 +7,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...parallel.dist import global_sum
+
 
 def sigmoid_focal_loss(logits: torch.Tensor, labels: torch.Tensor,
                        gamma: float = 2.0, alpha: float = 0.25,
@@ -29,7 +31,8 @@ def center_focal_loss(pred: torch.Tensor, gt: torch.Tensor, mask=None,
     """pred (B, H, W, K) sigmoid probabilities; gt the same shape, Gaussian
     targets whose centres are exactly 1 (the positives); mask (B, H, W)
     bool, True = valid pixel. The sum over the positives' count, or the
-    negatives' sum alone where there is no positive."""
+    negatives' sum alone where there is no positive; over data-parallel
+    ranks both the count and the branch are the global batch's."""
     pred = pred.clamp(eps, 1 - eps)
     pos = (gt == 1).to(pred.dtype)
     neg_weights = (1 - gt) ** 4
@@ -39,7 +42,8 @@ def center_focal_loss(pred: torch.Tensor, gt: torch.Tensor, mask=None,
         m = mask[..., None].to(pred.dtype)
         pos_loss = pos_loss * m
         neg_loss = neg_loss * m
-    num_pos = pos.sum()
+    # the positives of the global batch, over data-parallel ranks
+    num_pos = global_sum(pos.sum())
     total = -(pos_loss.sum() + neg_loss.sum())
     return torch.where(num_pos > 0, total / num_pos.clamp(min=1.0),
                        -neg_loss.sum())

@@ -1,18 +1,28 @@
 """Evaluate a checkpoint on a dataset (as ``tools/test.py`` of the JAX
 package: keypoint models, and the detection models SOIT and DK-DETR).
 
-    python -m pavenet_tpu_torch.tools.test <config.py> <checkpoint.pt>
+    python -m pavenet_tpu_torch.tools.test <config.py> <checkpoint>
         [--eval keypoints] [--out dets.json] [--format-only]
         [--flip-test] [--aug-scales 1.0 0.75 ...]
-        [--dtype f32|bf16] [--device cuda|cpu] [--cfg-options k=v ...]
+        [--dtype f32|bf16] [--device cuda|cpu] [--dist-backend nccl|gloo]
+        [--cfg-options k=v ...]
+
+    # one process per card
+    pavenet_tpu_torch/tools/dist_test.sh <config.py> <checkpoint> <GPUS>
 
 ``data.test`` through the test pipeline with the uint8 feed normalised on
 the card (unless ``test_pipeline_kwargs`` sets ``normalize_on_device``
-False), the checkpoint's model weights (``utils/checkpoint.py::
-restore_variables``), ``run_inference`` (with ``--flip-test`` the flip
-merge, with ``--aug-scales`` one pass per scale and flip, merged), then
-``--out`` and the keypoint metrics. ``main(argv)`` returns the metrics and
-the loop's timing.
+False), the checkpoint's model weights (a port checkpoint ``step_N.pt``,
+or a reference ``.pth`` converted by ``utils/reference_convert.py``:
+``apis/inference.py::load_checkpoint``), ``run_inference`` (with
+``--flip-test`` the flip merge, with ``--aug-scales`` one pass per scale
+and flip, merged), then ``--out`` and the keypoint metrics. ``main(argv)``
+returns the metrics and the loop's timing.
+
+Under a launcher (``parallel/dist.py``) each rank runs its shard of the
+dataset, the detections are gathered in rank order
+(``gather_detections``), and rank 0 writes ``--out`` and evaluates; the
+other ranks return ``metrics`` None.
 
 A detection model (SOIT, DK-DETR) takes host-normalised single images
 (``normalize_on_device`` stays off unless the config sets it), DK-DETR the
@@ -30,6 +40,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+
+from pavenet_tpu_torch.tools.train import add_dist_args
 
 
 def parse_args(argv=None):
@@ -54,7 +66,10 @@ def parse_args(argv=None):
     p.add_argument("--dtype", default="auto", choices=["auto", "f32", "bf16"],
                    help="activation dtype ('auto' follows the config's "
                         "act_dtype)")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (under a launcher the rank's own card), "
+                        "'cuda:N' or 'cpu'")
+    add_dist_args(p)
     p.add_argument("--cfg-options", nargs="+", default=[])
     return p.parse_args(argv)
 
@@ -62,6 +77,22 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     import torch
+    from pavenet_tpu_torch.parallel import dist
+    from pavenet_tpu_torch.tools.train import load_config, start_ranks
+
+    cfg = load_config(args.config, args.cfg_options)
+    if str(args.device).startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device (pass --device cpu "
+                         "to test on the CPU)")
+    device, owns_group = start_ranks(args)
+    try:
+        return _test(args, cfg, device)
+    finally:
+        if owns_group:
+            dist.destroy()
+
+
+def _test(args, cfg, device) -> dict:
     from pavenet_tpu_torch.apis.inference import init_detector
     from pavenet_tpu_torch.apis.test import (evaluate_dataset,
                                              gather_detections,
@@ -71,19 +102,14 @@ def main(argv=None) -> dict:
     from pavenet_tpu_torch.datasets.pipelines import build_test_pipeline
     from pavenet_tpu_torch.models.detectors.soit import SOITDetector
     from pavenet_tpu_torch.models.text_encoder import PseudoTextEncoder
+    from pavenet_tpu_torch.parallel import dist
     from pavenet_tpu_torch.tools.train import (build_dataset,
                                                eval_pipeline_kwargs,
-                                               load_config)
-    from pavenet_tpu_torch.utils.checkpoint import restore_variables
-    from pavenet_tpu_torch.utils.logging import get_root_logger
+                                               rank_logger)
 
-    cfg = load_config(args.config, args.cfg_options)
-    logger = get_root_logger()
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device (pass --device cpu "
-                         "to test on the CPU)")
-    model = init_detector(cfg, device=args.device, dtype=args.dtype)
-    model.load_state_dict(restore_variables(args.checkpoint))
+    logger = rank_logger(None)
+    model = init_detector(cfg, device=device, dtype=args.dtype,
+                          checkpoint=args.checkpoint)
     is_det = isinstance(model, SOITDetector)
     if is_det:
         if args.flip_test or args.aug_scales:
@@ -95,7 +121,9 @@ def main(argv=None) -> dict:
         kwargs, img_norm = eval_pipeline_kwargs(cfg)
     dataset = build_dataset(cfg, "test", build_test_pipeline(**kwargs))
     loader = ClipLoader(dataset, batch_size=1, shuffle=False,
-                        drop_last=False, num_keypoints=dataset.NUM_KEYPOINTS)
+                        drop_last=False, num_keypoints=dataset.NUM_KEYPOINTS,
+                        num_shards=dist.world_size(),
+                        shard_index=dist.rank())
     timing = {}
     if is_det:
         text_feats = None
@@ -117,6 +145,9 @@ def main(argv=None) -> dict:
             model, loader, logger=logger, img_norm=img_norm, timing=timing,
             flip_test=args.flip_test, aug_scales=args.aug_scales))
         dump = detections
+    if not dist.is_main():
+        return dict(metrics=None, detections=len(detections),
+                    checkpoint=os.path.abspath(args.checkpoint), **timing)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dump, f)
