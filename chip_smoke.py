@@ -9,7 +9,8 @@ video pretraining) with COCO-format data through the CLIs, and SOIT and
 DK-DETR (instance masks, text-embedding classes) with instance scenes and
 a VOC tree through the test CLI; data parallelism over two ranks on the
 card against one process, the CLIs under a launcher, and reference
-``.pth`` checkpoints.
+``.pth`` checkpoints; InsPose (star deformable convolutions on the msda
+kernels) serving, training, from a ``.pth`` and through the test CLI.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parent DIR   # only phases 1-3 and the comparison
@@ -221,6 +222,29 @@ non-zero):
    synthetic clip equal to the model built from that state dict, 11 (SOIT
    13) launches.
 
+30. InsPose R50 (``configs/inspose/inspose_r50_8x4_3x_coco.py``: FPN, 256-
+   and 512-wide towers, star deformable convolutions, dynamic keypoint
+   FCNs, K=17, 100 detections, soft-NMS): ``init_detector`` and
+   ``inference_detector`` on 3 synthetic 720x1280 images (800x1344
+   bucket), f32 and bf16: 100 detections of 17 keypoints, finite, exactly
+   10 msda launches per image (``cls_star`` and ``ctr_star`` on 5 levels,
+   the 9 taps of each folded onto one call's queries); cuda against torch
+   (TF32 off) on the plain path's top-k: level outputs, shared map and
+   heatmap logits within ``INSPOSE_TOL`` (bf16 ``BF16_STAGE_TOL``), in f32
+   keypoints within 1e-2 px off heatmap ties and soft-NMS scores within
+   1e-4; every soft-NMS score at most its top-k score. The msda kernels
+   against the plain version on the captured level-0 (Q = 151200) and
+   level-4 star calls, forward and backward, f32 and bf16, with their
+   bounds.
+31. InsPose train, f32: ``init_trainer``, 8 mini-steps (one update) at
+   800x1344, B=2 (the config's), 30 GT slots of seeded boxes and
+   keypoints: 10+10 launches each, ms per step, peak memory; one mini-step
+   cuda against torch: every loss within 1e-4, gradient norm within 1e-3.
+32. an InsPose reference ``.pth`` through ``init_detector`` (phase 29's
+   checks) and ``tools.test.main`` with it on phase 23's COCO scenes: 10
+   launches per image, boxes of category 1 without masks, box AP (as the
+   JAX CLI scores InsPose).
+
 Each run sets every launch count to 0 just before it and reads them just
 after. The last two lines are the kernels' JSON record (launches by run,
 bf16 launches beside them) and the contract line
@@ -362,6 +386,13 @@ CLI_DDP_STEPS = 2
 REFERENCE_RUNS = (("flagship", CONFIG, CALLS_PER_CLIP),
                   ("petr", PETR_CONFIG, CALLS_PER_CLIP),
                   ("soit", SOIT_CONFIG, SOIT_CALLS))
+INSPOSE_CONFIG = "configs/inspose/inspose_r50_8x4_3x_coco.py"
+INSPOSE_CALLS = 10    # cls_star and ctr_star on each of the 5 FPN levels
+# the star convolutions whose msda calls the kernels are checked on
+INSPOSE_CAPTURE = ("inspose_l0_cls_star", "inspose_l4_cls_star")
+# f32 serving, kernels vs plain: level outputs and heatmap logits (relative
+# to their largest), keypoints (px) and soft-NMS scores
+INSPOSE_TOL = dict(stages=1e-4, kpts=1e-2, scores=1e-4)
 # msda kernel vs plain: max abs error within these fractions of the plain
 # version's max |out| (|grad|), f32 and bf16
 MSDA_FWD_TOL = (("float32", 1e-5), ("bfloat16", 1e-2))
@@ -2878,6 +2909,10 @@ def invert_rules(rules, state, seed=0):
             out.update(zip(rule.refs, vals[0].chunk(len(rule.refs), 0)))
         elif rule.kind == "split":
             out[rule.refs[0]] = torch.cat(vals, 0)
+        elif rule.kind == "dcn":    # Linear (o, 9i) -> DCN (o, i, 3, 3)
+            w = vals[0]
+            out[rule.refs[0]] = w.reshape(w.shape[0], 3, 3, -1).permute(
+                0, 3, 1, 2)
         else:
             perm, axis = rule.arg
             inv = torch.empty_like(vals[0])
@@ -2886,26 +2921,29 @@ def invert_rules(rules, state, seed=0):
     return {k: v.contiguous() for k, v in out.items()}
 
 
-def reference_pth(smi):
-    """Phase 29: a reference-named ``.pth`` of the flagship, PETR R50 and
-    SOIT R50 at full width (the port's seed-1 init through the inverted
-    rule table) loaded by ``init_detector(checkpoint=...)`` on the card
-    (seed 0, so that a key left unloaded would show): the state dict equal
-    to the source bit for bit (PETR's sigma branches, which the reference
-    tree lacks, the model's own seed-0 init), and ``forward_test`` on a
-    synthetic clip equal to a model built from that state dict. Returns
-    the launches."""
+def reference_pth(smi, specs=REFERENCE_RUNS):
+    """Phase 29: a reference-named ``.pth`` of each of ``specs`` (name,
+    config, msda launches of one ``forward_test``; the flagship, PETR R50
+    and SOIT R50; phase 32: InsPose) at full width (the port's seed-1 init
+    through the inverted rule table) loaded by
+    ``init_detector(checkpoint=...)`` on the card (seed 0, so that a key
+    left unloaded would show): the state dict equal to the source bit for
+    bit (PETR's sigma branches, which the reference tree lacks, the
+    model's own seed-0 init), and ``forward_test`` on a synthetic clip (an
+    image) equal to a model built from that state dict. Returns the
+    launches."""
     import torch
     from pavenet_tpu_torch.apis.inference import (build_model, host_batch,
                                                   init_detector)
-    from pavenet_tpu_torch.models.detectors.soit import SOITDetector
+    from pavenet_tpu_torch.models.detectors import (InsPoseDetector,
+                                                    SOITDetector)
     from pavenet_tpu_torch.utils.reference_convert import (
         convert_reference_state_dict, reference_rules)
 
     runs = {}
     folder = CHIP_WORK / "reference"
     folder.mkdir(parents=True, exist_ok=True)
-    for name, config, calls in REFERENCE_RUNS:
+    for name, config, calls in specs:
         path = str(ROOT / config)
         src = build_model(path, seed=1)
         state = src.state_dict()
@@ -2936,7 +2974,7 @@ def reference_pth(smi):
         clip = synthetic_clips(frames=model.num_frames)[1]
         batch = {k: torch.from_numpy(v).cuda() for k, v in host_batch(
             clip, model.num_frames, (1333, 800)).items()}
-        if isinstance(model, SOITDetector):
+        if isinstance(model, (SOITDetector, InsPoseDetector)):
             batch["img"] = batch["img"][:, 0]
         reset_launches()
         with torch.inference_mode():
@@ -2963,6 +3001,350 @@ def reference_pth(smi):
         del model, built, src, ref
         torch.cuda.empty_cache()
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phases 30-32: InsPose
+# ---------------------------------------------------------------------------
+def inspose_batch_fn(K=17, G=30):
+    """``train``'s InsPose batches: noise images at ``hw``, G boxes inside
+    the valid region (``img_shape`` (H, W - 11)), K keypoints inside each
+    box (a fifth of them invisible), the first 3/4 of the slots valid."""
+    import numpy as np
+
+    def make(rng, B, hw):
+        H, W = hw
+        x0 = rng.uniform(0, (W - 11) * 0.7, (B, G))
+        y0 = rng.uniform(0, H * 0.7, (B, G))
+        bw = rng.uniform(32, (W - 11) * 0.3, (B, G))
+        bh = rng.uniform(32, H * 0.3, (B, G))
+        kpts = np.empty((B, G, K, 3), np.float32)
+        kpts[..., 0] = x0[..., None] + rng.rand(B, G, K) * bw[..., None]
+        kpts[..., 1] = y0[..., None] + rng.rand(B, G, K) * bh[..., None]
+        kpts[..., 2] = (rng.rand(B, G, K) > 0.2) * 2.0
+        valid = np.zeros((B, G), bool)
+        valid[:, : G * 3 // 4] = True
+        return dict(
+            img=rng.randn(B, H, W, 3).astype(np.float32),
+            img_shape=np.tile(np.array([[H, W - 11]], np.int32), (B, 1)),
+            scale_factor=np.ones((B, 2), np.float32),
+            gt_boxes=np.stack([x0, y0, x0 + bw, y0 + bh], -1).astype(
+                np.float32),
+            gt_keypoints=kpts, gt_valid=valid)
+    return make
+
+
+def check_inspose_output(out, M, K):
+    """One image's InsPose detections: shapes, finite, labels 0, soft-NMS
+    scores in [0, 1]."""
+    import numpy as np
+    shapes = {k: v.shape for k, v in out.items()}
+    want = {"det_kpts": (M, K, 3), "det_bboxes": (M, 5), "det_labels": (M,),
+            "keep": (M,)}
+    if shapes != want:
+        raise AssertionError(f"detections {shapes}, expected {want}")
+    s = out["det_bboxes"][:, 4]
+    if not (np.isfinite(out["det_kpts"]).all()
+            and np.isfinite(out["det_bboxes"]).all()
+            and (out["det_labels"] == 0).all() and s.min() >= 0
+            and s.max() <= 1):
+        raise AssertionError(f"InsPose detections: scores in [{s.min()}, "
+                             f"{s.max()}], labels {set(out['det_labels'])}")
+
+
+def inspose_outputs(model, batch, topk_idx=None):
+    """One InsPose forward's stages on ``batch``: the flattened levels'
+    ``cls``, ``dyn`` and ``off``, the ``shared`` map, the top-k (or
+    ``topk_idx``) and its scores, the top-k's dynamic heatmap logits
+    ``hm`` (B, M, h0*w0, K), and ``forward_test`` on that top-k."""
+    import torch
+    with torch.inference_mode():
+        outs, shared, _ = model.forward_levels(batch["img"], with_hm=False)
+        cls, dyn, off, pts, strd = model.flatten_levels(outs)
+        scores = cls.sigmoid()[..., 0]
+        if topk_idx is None:
+            topk_idx = scores.topk(model.max_per_img, dim=1).indices
+        M = topk_idx.shape[1]
+        d = torch.gather(dyn, 1, topk_idx[..., None].expand(-1, M,
+                                                            dyn.shape[-1]))
+        hm = model.dynamic_heatmaps(
+            d, shared, pts[topk_idx],
+            normalize=strd[topk_idx] * (64.0 / model.strides[0]))
+        det = model.forward_test(batch, topk_idx=topk_idx)
+    return dict(cls=cls, dyn=dyn, off=off, shared=shared, topk_idx=topk_idx,
+                top_scores=torch.gather(scores, 1, topk_idx), hm=hm, **det)
+
+
+def inspose_parity(model, batch, dtype):
+    """Kernels against the plain model (its weights, ``impl='torch'``),
+    TF32 off, both on the plain path's top-k: every stage (level outputs,
+    shared map, heatmap logits) within ``INSPOSE_TOL['stages']`` of its
+    largest in f32 (``BF16_STAGE_TOL`` in bf16); in f32 the keypoints
+    within 1e-2 px except where the plain heatmap's argmax or its 0.1
+    threshold is a tie (1e-4), the soft-NMS scores within 1e-4 and the
+    kernels' own top-k scores within 1e-5 of the plain path's. The soft-NMS
+    score never exceeds its top-k score. Returns the plain model."""
+    import torch
+    from pavenet_tpu_torch.apis import init_detector
+    tf32(False)
+    plain = init_detector(str(ROOT / INSPOSE_CONFIG), device="cuda",
+                          impl="torch", dtype=dtype)
+    plain.load_state_dict(model.state_dict())
+    want = inspose_outputs(plain, batch)
+    got = inspose_outputs(model, batch, want["topk_idx"])
+    f32 = dtype == "f32"
+    tol = INSPOSE_TOL["stages"] if f32 else BF16_STAGE_TOL
+    errs = {k: rel_err(got[k], want[k])
+            for k in ("cls", "dyn", "off", "shared", "hm")}
+    bad = {k: e for k, e in errs.items() if not e <= tol}
+    over = (want["det_bboxes"][..., 4] > want["top_scores"].float()
+            + 1e-6).sum().item()
+    ties = flips = 0
+    score_err = own_err = None
+    if f32:
+        hm = want["hm"].float()
+        peak = hm.amax(2)                                   # (B, M, K)
+        at_got = torch.gather(hm, 2, got["hm"].argmax(2)[:, :, None])[:, :, 0]
+        tie = ((peak - at_got).abs() <= 1e-4 * hm.abs().max()) | (
+            (torch.sigmoid(peak) - 0.1).abs() <= 1e-4)
+        far = (got["det_kpts"][..., :2] - want["det_kpts"][..., :2]).abs() \
+            .amax(-1) > INSPOSE_TOL["kpts"]
+        flips = (far & ~tie).sum().item()
+        ties = (far & tie).sum().item()
+        score_err = (got["det_bboxes"][..., 4]
+                     - want["det_bboxes"][..., 4]).abs().max().item()
+        own = inspose_outputs(model, batch)
+        own_err = (own["top_scores"].float().sort(-1).values
+                   - want["top_scores"].float().sort(-1).values
+                   ).abs().max().item()
+        if not (score_err <= INSPOSE_TOL["scores"] or ties):
+            bad["scores"] = score_err
+        if not own_err <= 1e-5:
+            bad["own_topk"] = own_err
+        del own
+    if bad or flips or over:
+        raise AssertionError(f"InsPose cuda vs torch {dtype}: {bad}; "
+                             f"{flips} keypoints apart off a tie; {over} "
+                             f"soft-NMS scores above their top-k score; "
+                             f"stages {errs}")
+    print(f"serve parity {INSPOSE_CONFIG} {dtype}: impl=cuda vs impl=torch, "
+          f"TF32 off, on the plain path's top-k: stage errors (of their "
+          f"largest) {json.dumps(errs)} (limit {tol})"
+          + (f"; keypoints within {INSPOSE_TOL['kpts']} px ({ties} apart on "
+             f"a heatmap tie), soft-NMS scores within {score_err:.3e}, the "
+             f"kernels' own top-k scores within {own_err:.3e}" if f32
+             else "") + "; every soft-NMS score at most its top-k score",
+          flush=True)
+    del got, want
+    tf32(True)
+    return plain
+
+
+def capture_star_calls(model, batch, keep=INSPOSE_CAPTURE):
+    """The inputs of the named star-convolution msda calls (``keep``) of
+    one ``forward_test`` of ``model`` (the plain path):
+    ``[(name, value, levels, loc, attn)]``, named
+    ``inspose_l{level}_{cls,ctr}_star`` in call order."""
+    import torch
+    from pavenet_tpu_torch.models.detectors import inspose
+    names = [f"inspose_l{lvl}_{b}_star" for lvl in range(5)
+             for b in ("cls", "ctr")]
+    calls, captured, dispatch = [], [], inspose.ms_deform_attn
+
+    def record(value, shapes, loc, attn, **kw):
+        name = names[len(calls)]
+        calls.append(name)
+        if name in keep:   # the value is a view of the NCHW map: copied
+            captured.append((name, value.detach().clone(
+                memory_format=torch.contiguous_format),
+                tuple(map(tuple, shapes)), loc.detach().float().clone(),
+                attn.detach().float().clone()))
+        return dispatch(value, shapes, loc, attn, **kw)
+
+    inspose.ms_deform_attn = record
+    try:
+        with torch.no_grad():
+            model.forward_test(batch)
+    finally:
+        inspose.ms_deform_attn = dispatch
+    if len(calls) != INSPOSE_CALLS:
+        raise AssertionError(f"{len(calls)} star msda calls in one forward")
+    return captured
+
+
+def inspose_serve(smi, dtype):
+    """InsPose serving: ``init_detector`` and ``inference_detector`` on
+    ``CLIPS`` synthetic 720x1280 images (800x1344 bucket), exactly
+    ``INSPOSE_CALLS`` msda launches each, then ``inspose_parity``. Returns
+    the launches, ``forward_test`` ms, and the plain model with the batch
+    (for the captures)."""
+    import torch
+    from pavenet_tpu_torch.apis import inference_detector, init_detector
+    model = init_detector(str(ROOT / INSPOSE_CONFIG), device="cuda", seed=0,
+                          dtype=dtype)
+    M, K = model.max_per_img, model.num_keypoints
+    imgs = [clip[0] for clip in synthetic_clips(frames=1)]
+    check_inspose_output(inference_detector(model, imgs[0]), M, K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    outs = [inference_detector(model, img) for img in imgs[1:]]
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    img_ms = start.elapsed_time(end) / CLIPS
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for out in outs:
+        check_inspose_output(out, M, K)
+    check_launches(f"serve {INSPOSE_CONFIG} {dtype}, {CLIPS} images",
+                   launches, expect({"msda_fwd": INSPOSE_CALLS}, dtype),
+                   CLIPS)
+    batch = det_feed(imgs[1], None)
+    with torch.inference_mode():
+        model_ms = cuda_ms(lambda: model.forward_test(batch), reps=5,
+                           warmup=1)
+    kept = int(sum(out["keep"].sum() for out in outs))
+    print(f"serve {INSPOSE_CONFIG}: {CLIPS} images at "
+          f"{tuple(batch['img'].shape[1:3])}, {dtype}, {M} detections of "
+          f"{K} keypoints ({kept} above score_thr after soft-NMS); launches "
+          f"{json.dumps(launches)}; {img_ms:.2f} ms/image end to end (host "
+          f"pipeline and soft-NMS included), {model_ms:.2f} ms/image "
+          f"forward_test; peak memory {peak_gb:.2f} GiB | {smi}", flush=True)
+    plain = inspose_parity(model, batch, dtype)
+    del model
+    torch.cuda.empty_cache()
+    return launches, model_ms, plain, batch
+
+
+def inspose_train_parity(batch_size):
+    """impl=cuda vs impl=torch on one mini-step of the model as initialised
+    from seed 0, TF32 off, on a seeded InsPose batch: every loss within
+    1e-4 and the gradient norm within 1e-3 relative (phase 9's limits);
+    the kernels launched in the cuda step only. Only ``loss_cls`` and
+    ``loss_keypoint`` see the star convolutions."""
+    import numpy as np
+    import torch
+    from pavenet_tpu_torch.apis.inference import build_model
+    from pavenet_tpu_torch.apis.train import to_device
+    tf32(False)
+    batch = to_device(inspose_batch_fn()(np.random.RandomState(1),
+                                         batch_size, (800, 1344)), "cuda")
+    results = {}
+    for impl in ("torch", "cuda"):
+        model = build_model(str(ROOT / INSPOSE_CONFIG),
+                            impl=impl).cuda().train()
+        reset_launches()
+        losses = model.forward_train(batch)
+        losses["loss"].backward()
+        launches = read_launches()
+        check_launches(f"InsPose train parity, impl={impl}", launches,
+                       {"msda_fwd": INSPOSE_CALLS,
+                        "msda_bwd": INSPOSE_CALLS} if impl == "cuda"
+                       else {}, 1)
+        norm = torch.linalg.vector_norm(torch.stack([
+            p.grad.norm() for p in model.parameters() if p.grad is not None]))
+        results[impl] = ({k: v.item() for k, v in losses.items()},
+                         norm.item())
+        del model, losses
+        torch.cuda.empty_cache()
+    (loss_t, norm_t), (loss_c, norm_c) = results["torch"], results["cuda"]
+    rel = {k: abs(loss_c[k] - loss_t[k]) / abs(loss_t[k]) for k in loss_t}
+    worst = max(rel, key=rel.get)
+    norm_rel = abs(norm_c - norm_t) / norm_t
+    if not (all(r <= 1e-4 for r in rel.values()) and norm_rel <= 1e-3):
+        raise AssertionError(f"InsPose cuda vs torch train step: loss rel "
+                             f"errors {rel}, grad norm {norm_c} vs {norm_t}")
+    print(f"train parity {INSPOSE_CONFIG} f32: impl=cuda vs impl=torch, one "
+          f"mini-step at 800x1344, B={batch_size}, TF32 off: max loss rel "
+          f"err {rel[worst]:.3e} ({worst}) over {len(rel)} losses (limit "
+          f"1e-4), grad norm {norm_c:.6g} vs {norm_t:.6g} (rel "
+          f"{norm_rel:.3e}, limit 1e-3)", flush=True)
+    tf32(True)
+    return rel[worst]
+
+
+def inspose_cli(smi, pth):
+    """Phase 32's test CLI: ``tools.test.main`` with the InsPose ``.pth`` on
+    phase 23's COCO keypoint scenes at 448x768, every detection kept
+    (``score_thr`` 0): ``INSPOSE_CALLS`` launches per image, boxes with
+    ``category_id`` 1 and no mask, box AP (JAX's CLI scores InsPose so).
+    Returns the launches."""
+    from pavenet_tpu_torch.tools import test as test_cli
+    if not (COCO_DATA / "val.json").exists():
+        write_coco_scenes(COCO_DATA)
+    work = CHIP_WORK / "inspose"
+    work.mkdir(parents=True, exist_ok=True)
+    cfg = work / "inspose_cli.py"
+    cfg.write_text(
+        f"_base_ = {str(ROOT / INSPOSE_CONFIG)!r}\n"
+        "model = dict(test_cfg=dict(score_thr=0.0))\n"
+        f"data = dict(test=dict(ann_file={str(COCO_DATA / 'val.json')!r}, "
+        f"img_prefix={str(COCO_DATA) + '/'!r}))\n"
+        f"test_pipeline_kwargs = dict(img_scale={COCO_HW[::-1]!r}, "
+        f"buckets=({COCO_HW!r},))\n")
+    dets = work / "dets.json"
+    reset_launches()
+    out = test_cli.main([str(cfg), str(pth), "--out", str(dets)])
+    launches = read_launches()
+    check_launches(f"inspose_cli, {out['clips']} images", launches,
+                   {"msda_fwd": INSPOSE_CALLS}, out["clips"])
+    dumped = json.load(open(dets))
+    metrics = out["metrics"] or {}
+    if not ("bbox/AP" in metrics and "segm/AP" not in metrics
+            and len(dumped) == out["detections"] == 100 * out["clips"]
+            and all(d["category_id"] == 1 and len(d["bbox"]) == 4
+                    and "keypoints" not in d for d in dumped)):
+        raise AssertionError(f"inspose_cli: metrics {metrics}, "
+                             f"{len(dumped)} detections")
+    print(f"inspose_cli: tools.test.main on {os.path.basename(str(cfg))} "
+          f"with the reference .pth at {COCO_HW[0]}x{COCO_HW[1]}: "
+          f"{out['clips']} images, {out['detections']} boxes (category 1, "
+          f"no mask), launches {json.dumps(launches)}; eval loop "
+          f"{out['ms_per_clip']:.2f} ms/image (host included; first "
+          f"{out['first_clip_s']:.2f} s); box metrics "
+          f"{json.dumps(metrics)} | {smi}", flush=True)
+    return launches
+
+
+def inspose_family(smi, runs, serve_ms, fwd, bwd):
+    """Phases 30-32: InsPose serve (f32, bf16) with the kernels on the
+    captured level-0 and level-4 star calls, forward and backward; train
+    (f32, the config's B=2, 30 GT slots, one update) and its cuda-vs-torch
+    mini-step; the ``.pth`` through ``init_detector`` and the test CLI.
+    Adds to ``runs``, ``serve_ms``, ``fwd`` and ``bwd``."""
+    import torch
+    from pavenet_tpu_torch.config import Config
+    for dtype in ("f32", "bf16"):
+        runs[f"inspose_serve_{dtype}"], serve_ms[("inspose", dtype)], plain, \
+            batch = inspose_serve(smi, dtype)
+        if dtype == "f32":
+            captured = capture_star_calls(plain, batch)
+            del plain, batch
+            torch.cuda.empty_cache()
+            check_captured(captured, fwd, bwd)
+            del captured
+        else:
+            del plain, batch
+        torch.cuda.empty_cache()
+    # 31. train
+    batch_size = Config.fromfile(str(ROOT / INSPOSE_CONFIG)).data \
+        .samples_per_gpu
+    runs["inspose_train_f32"], _ = train(
+        smi, INSPOSE_CONFIG, {"msda_fwd": INSPOSE_CALLS,
+                              "msda_bwd": INSPOSE_CALLS},
+        batch_size=batch_size, batch_fn=inspose_batch_fn())
+    torch.cuda.empty_cache()
+    inspose_train_parity(batch_size)
+    torch.cuda.empty_cache()
+    # 32. the .pth and the test CLI
+    runs.update(reference_pth(smi, (("inspose", INSPOSE_CONFIG,
+                                     INSPOSE_CALLS),)))
+    runs["inspose_cli"] = inspose_cli(
+        smi, CHIP_WORK / "reference" / "inspose.pth")
+    torch.cuda.empty_cache()
 
 
 def kernel_record(name, records, launches, replaces, **extra):
@@ -3004,6 +3386,13 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is False)")
+    t_start = time.perf_counter()
+
+    def lap(phases):
+        """The script's clock at the end of ``phases``: where the run's
+        time goes, for a later slice that must cut depth to fit."""
+        print(f"time: phases {phases} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
     sys.path.insert(0, str(ROOT))
     from pavenet_tpu_torch.ops import _ext
     from pavenet_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
@@ -3046,6 +3435,7 @@ def main(argv=None):
     del captured
     torch.cuda.empty_cache()
     win_fwd, win_bwd, _ = check_window(_ext)
+    lap("1-7")
 
     # 8-9. flagship (deformable) serve and train, f32 then bf16
     flagship = {"msda_fwd": CALLS_PER_CLIP, "msda_bwd": CALLS_PER_CLIP}
@@ -3059,6 +3449,7 @@ def main(argv=None):
     runs["flagship_train_bf16"], _ = train(smi, CONFIG, flagship, "bf16")
     train_parity(CONFIG, dtype="bf16", limits=(BF16_LOSS_TOL, BF16_NORM_TOL))
     torch.cuda.empty_cache()
+    lap("8-9")
 
     # 10. the from-scratch recipe: trainable BatchNorm, nothing frozen
     runs["synthetic_train_f32"], _ = train(
@@ -3082,11 +3473,13 @@ def main(argv=None):
     torch.cuda.empty_cache()
     runs["distill_f32"] = distill(smi)
     torch.cuda.empty_cache()
+    lap("10-13")
 
     # 14, 18. dataset to AP through the CLIs, with test-time augmentation
     # and the distillation CLI
     runs.update(dataset_to_ap(smi))
     torch.cuda.empty_cache()
+    lap("14, 18")
 
     # 15-16. Swin-L PAVE-Net: serve (f32, bf16), train (f32)
     for dtype in ("f32", "bf16"):
@@ -3106,6 +3499,7 @@ def main(argv=None):
     # both paths on the plain path's top-k, the tie checked
     train_parity(FRAMES5_CONFIG, fixed_topk=True)
     torch.cuda.empty_cache()
+    lap("15-17")
 
     # 19-22. the PETR family: PETR R50 on COCO (serve f32 and bf16, train
     # with the heatmap encoder's call), PETR HRNet-W48, HRNet-W48 video
@@ -3137,6 +3531,7 @@ def main(argv=None):
     # 23. COCO-format data through the CLIs
     runs.update(petr_cli(smi))
     torch.cuda.empty_cache()
+    lap("19-23")
     # 24-25. SOIT R50 and DK-DETR R50 LVIS: serve, the kernels on their
     # in-model calls, train, cuda against torch
     mask_calls = soit_family(smi, runs, serve_ms, fwd, bwd)
@@ -3144,6 +3539,7 @@ def main(argv=None):
     # 26. instance scenes and a VOC tree through the test CLI
     runs.update(det_cli(smi))
     torch.cuda.empty_cache()
+    lap("24-26")
     # 27. two ranks on the one card against one process: the flagship and
     # the from-scratch recipe
     runs.update(ddp_train(smi))
@@ -3154,12 +3550,19 @@ def main(argv=None):
     # 29. reference .pth checkpoints of the flagship, PETR R50 and SOIT R50
     runs.update(reference_pth(smi))
     torch.cuda.empty_cache()
+    lap("27-29")
+    # 30-32. InsPose: serve (f32, bf16) with its star calls on the kernels,
+    # train, a reference .pth and the test CLI
+    inspose_family(smi, runs, serve_ms, fwd, bwd)
+    torch.cuda.empty_cache()
+    lap("30-32")
     print("serve forward_test ms/clip, f32 / bf16: " + ", ".join(
         f"{m} {serve_ms[(m, 'f32')]:.2f} / "
         + (f"{serve_ms[(m, 'bf16')]:.2f}" if (m, "bf16") in serve_ms
            else "-") for m in ("flagship", "windowed", "swin", "frames5",
                                "petr", "petr_hrnet", "hrnet_pretrain",
-                               "petr_crowdpose", "soit", "dkdetr"))
+                               "petr_crowdpose", "soit", "dkdetr",
+                               "inspose"))
         + f" | {smi}", flush=True)
 
     def by_run(name):
@@ -3172,8 +3575,9 @@ def main(argv=None):
 
     def frames5(records):
         """The T=5 encoder call's numbers, in-model, f32, the PETR family's
-        calls (random and in-model) and SOIT's and DK-DETR's in-model seg
-        encoder and box-reference decoder calls, f32."""
+        calls (random and in-model), SOIT's and DK-DETR's in-model seg
+        encoder and box-reference decoder calls and InsPose's level-0 and
+        level-4 star calls, f32."""
         out = {}
         for case, suffix in (("frames5_encoder0", "frames5_in_model"),
                              ("petr_encoder", "petr_encoder"),
@@ -3191,13 +3595,19 @@ def main(argv=None):
                              ("soit_decoder0", "soit_decoder0_in_model"),
                              ("soit_decoder5", "soit_decoder5_in_model"),
                              ("soit_train_decoder5",
-                              "soit_decoder5_b2_in_model")):
+                              "soit_decoder5_b2_in_model"),
+                             ("inspose_l0_cls_star",
+                              "inspose_star_l0_in_model"),
+                             ("inspose_l4_cls_star",
+                              "inspose_star_l4_in_model")):
             recs = [r for r in records if r["dtype"] == "float32"
                     and r["case"] == case]
             if recs:
                 out.update({f"{k}_{suffix}": recs[0][k] for k in
                             ("ms", "plain_ms", "bound_ms", "bound_by")})
         return out
+    print(f"chip_smoke: phases 1-32 passed in "
+          f"{time.perf_counter() - t_start:.1f} s | {smi}", flush=True)
     print(json.dumps({"kernels": [
         kernel_record("msda_fwd", fwd,
                       runs["flagship_train_f32"]["msda_fwd"],

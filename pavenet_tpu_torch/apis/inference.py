@@ -5,7 +5,8 @@ the device, eval mode, in the activation dtype of ``dtype`` or the
 config's ``act_dtype``, with the weights of a reference ``.pth`` or a port
 checkpoint where given;
 ``inference_detector(model, imgs)`` -> detections for one clip, or for one
-image of a detection model (SOIT; DK-DETR with its ``text_feats``). The host
+image of a single-image model (SOIT; DK-DETR with its ``text_feats``;
+InsPose). The host
 pipeline (``datasets/pipelines/transforms.py``) is the port's own copy of
 the JAX package's, so both packages see the same batch.
 """
@@ -20,6 +21,7 @@ from ..config import Config, resolve_act_dtype
 from ..datasets.pipelines.transforms import (
     DEFAULT_BUCKETS, FormatBatch, LoadClip, Normalize, PadToBucket, Resize)
 from ..models.builder import build_detector
+from ..models.detectors.inspose import InsPoseDetector
 from ..models.detectors.soit import SOITDetector
 from ..utils import weight_convert
 from ..utils.checkpoint import restore_variables
@@ -102,14 +104,15 @@ def inference_detector(model: torch.nn.Module,
     """Run one clip (frame paths or RGB arrays) through the model.
 
     Returns numpy det_kpts (M, K, 3), det_bboxes (M, 5), det_labels (M,),
-    keep (M,); for a detection model (one image) det_bboxes, det_labels and
-    det_masks (M, h, w), DK-DETR's classes the rows of ``text_feats``.
+    keep (M,) (InsPose: of one image, the soft-NMS score in det_bboxes);
+    for a detection model (one image) det_bboxes, det_labels and det_masks
+    (M, h, w), DK-DETR's classes the rows of ``text_feats``.
     """
     device = next(model.parameters()).device
     batch = {k: torch.from_numpy(v).to(device)
              for k, v in host_batch(imgs, model.num_frames,
                                      img_scale).items()}
-    if isinstance(model, SOITDetector):
+    if isinstance(model, (SOITDetector, InsPoseDetector)):
         batch["img"] = batch["img"][:, 0]
         if text_feats is not None:
             batch["text_feats"] = torch.as_tensor(text_feats,

@@ -10,11 +10,13 @@ host by ``_rescale_batch`` before the card normalises it, merged by
 ``merge_aug_detections``), and the detections the NMS keeps become dicts.
 ``evaluate_dataset`` adds MOTA where every detection has a ``track_id``.
 
-``run_det_inference`` is the detection and instance-segmentation loop
-(SOIT, DK-DETR): host-normalised single images, DK-DETR's ``text_feats``
-beside them, and COCO-style dicts with an xywh ``bbox`` and a binary
-``segmentation`` of the original image; ``evaluate_dataset`` gives those
-COCO box and mask AP, or the dataset's own protocol (LVIS, VOC).
+``run_det_inference`` is the single-image loop (SOIT, DK-DETR, InsPose):
+host-normalised single images, DK-DETR's ``text_feats`` beside them, and
+COCO-style dicts with an xywh ``bbox`` and, where the model predicts masks,
+a binary ``segmentation`` of the original image; ``evaluate_dataset`` gives
+those COCO box (and mask) AP, or the dataset's own protocol (LVIS, VOC).
+InsPose's dicts are its boxes (the keypoints' extent, the soft-NMS score,
+``category_id`` 1), scored as box AP, as the JAX test CLI scores them.
 Left out: the packed fetch and its double buffering (a remote-device
 workaround).
 """
@@ -166,7 +168,8 @@ def run_det_inference(model, loader, score_thr: float = 0.05,
                       img_norm=(IMG_NORM_MEAN, IMG_NORM_STD),
                       timing: Optional[dict] = None) -> List[dict]:
     """COCO-style detections (image_id, category_id = label + 1, ``bbox``
-    xywh, score, ``segmentation``) of a detection model over ``loader``
+    xywh, score, and ``segmentation`` where the model gives ``det_masks``)
+    of a single-image model over ``loader``
     (T=1 batches; a uint8 image normalised on the card with ``img_norm``),
     in eval mode; rows under ``score_thr`` and repeat-padded rows are left
     out. ``text_feats`` (C', D) goes with every batch (DK-DETR). A mask,
@@ -196,16 +199,20 @@ def run_det_inference(model, loader, score_thr: float = 0.05,
         dets = []
         for m in np.where(scores >= score_thr)[0]:
             x1, y1, x2, y2 = out["det_bboxes"][b, m, :4]
-            mk = out["det_masks"][b, m]
-            h2 = int(np.ceil(ih / (pad_h / mk.shape[0])))
-            w2 = int(np.ceil(iw / (pad_w / mk.shape[1])))
-            mk = cv2.resize(mk[:h2, :w2].astype(np.float32), (ori_w, ori_h),
-                            interpolation=cv2.INTER_LINEAR)
-            dets.append(dict(
+            det = dict(
                 image_id=int(batch["image_id"][b]),
                 category_id=int(out["det_labels"][b, m]) + 1,
                 bbox=[float(x1), float(y1), float(x2 - x1), float(y2 - y1)],
-                score=float(scores[m]), segmentation=mk >= mask_thr))
+                score=float(scores[m]))
+            if "det_masks" in out:
+                mk = out["det_masks"][b, m]
+                h2 = int(np.ceil(ih / (pad_h / mk.shape[0])))
+                w2 = int(np.ceil(iw / (pad_w / mk.shape[1])))
+                mk = cv2.resize(mk[:h2, :w2].astype(np.float32),
+                                (ori_w, ori_h),
+                                interpolation=cv2.INTER_LINEAR)
+                det["segmentation"] = mk >= mask_thr
+            dets.append(det)
         return dets
 
     return _inference_loop(model, loader, infer, decode, timing, logger,

@@ -28,7 +28,9 @@ The same step trains every detector the builder makes. A pose batch is a
 ``dummy_clip_batch`` or a ``datasets/loader.py::ClipLoader`` batch; a
 detection batch (SOIT, DK-DETR) holds ``img`` (B, H, W, 3), ``img_shape``,
 ``gt_boxes``, ``gt_labels``, ``gt_masks``, ``gt_valid`` and, for DK-DETR,
-``text_feats`` (``models/detectors/soit.py``). Only the keys the model
+``text_feats`` (``models/detectors/soit.py``); an InsPose batch ``img`` (B,
+H, W, 3), ``img_shape``, ``gt_boxes``, ``gt_keypoints`` and ``gt_valid``
+(``models/detectors/inspose.py``). Only the keys the model
 reads go to the device (``feed_keys``), and a uint8 image is normalised
 there (``apis/prep.py``, with the mean and std
 of the config's ``train_pipeline_kwargs``). ``TrainState.state_dict``
@@ -55,6 +57,7 @@ import torch
 import torch.nn as nn
 
 from ..config import Config
+from ..models.detectors.inspose import InsPoseDetector
 from ..models.detectors.soit import SOITDetector
 from ..models.layers.transformer import Dropout
 from ..parallel import dist
@@ -68,6 +71,8 @@ MODEL_KEYS = ("img", "img_shape", "scale_factor", "gt_keypoints",
               "gt_areas", "gt_valid")
 DET_KEYS = ("img", "img_shape", "scale_factor", "gt_boxes", "gt_labels",
             "gt_masks", "gt_valid")
+INSPOSE_KEYS = ("img", "img_shape", "scale_factor", "gt_boxes",
+                "gt_keypoints", "gt_valid")
 
 
 def _param_label(name: str, frozen_stages: int = 1,
@@ -358,7 +363,9 @@ def accumulate(state: TrainState):
 def feed_keys(model: nn.Module) -> tuple:
     """The batch keys ``model`` reads: a pose model ``MODEL_KEYS``, and
     ``gt_bboxes`` where its heatmap loss takes the radius from them; SOIT
-    ``DET_KEYS``, and DK-DETR ``text_feats``."""
+    ``DET_KEYS``, and DK-DETR ``text_feats``; InsPose ``INSPOSE_KEYS``."""
+    if isinstance(model, InsPoseDetector):
+        return INSPOSE_KEYS
     if isinstance(model, SOITDetector):
         return DET_KEYS + (("text_feats",) if model.cls_emb_dim else ())
     heatmap = model.head.with_heatmap and model.loss_hm_weight > 0

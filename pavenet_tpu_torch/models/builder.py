@@ -1,7 +1,7 @@
 """Config dict -> detector (as ``pavenet_tpu/models/builder.py``: the
 VideoPoseV1, VideoPoseV2 and PETR paths, a ResNet backbone with frozen or
-trainable BatchNorm, a Swin Transformer or an HRNet, SOIT and DK-DETR, and
-the activation dtype).
+trainable BatchNorm, a Swin Transformer or an HRNet, SOIT and DK-DETR,
+InsPose, and the activation dtype).
 
 The PETR mapping follows the JAX builder's: a ``PETRHead`` defaults to
 T=1, K=17 and L1 keypoint losses, takes its decoder queries from the
@@ -16,11 +16,17 @@ weights from the config, DK-DETR's ``text_encoder.text_dim`` and
 ``temperature``. Like the JAX builder it reads neither
 ``model.output_mask`` (the DK-DETR test configs set it False; masks are
 always predicted) nor ``ffn_dropout`` or ``frozen_stages`` (0.1 and 1, the
-JAX module's fixed values and every config's)."""
+JAX module's fixed values and every config's).
+
+InsPose follows the JAX ``_build_inspose``: a ResNet only, the head's
+widths, depths, strides, centre sampling and loss weights, and
+``test_cfg``'s ``score_thr`` and ``max_per_img``; like the JAX builder it
+reads no soft-NMS IoU (0.3, the JAX module's default and the config's)."""
 from __future__ import annotations
 
 import torch
 
+from .detectors.inspose import InsPoseDetector
 from .detectors.soit import SOITDetector
 from .detectors.videopose import VideoPoseDetector
 
@@ -116,25 +122,55 @@ def _build_soit(cfg: dict, impl: str, dtype: torch.dtype) -> SOITDetector:
         impl=impl, dtype=dtype)
 
 
+def _build_inspose(cfg: dict, impl: str,
+                   dtype: torch.dtype) -> InsPoseDetector:
+    head = cfg.get("bbox_head", {})
+    backbone = cfg.get("backbone", {})
+    if _type_name(backbone, "ResNet") != "ResNet":
+        raise KeyError("InsPose takes a ResNet backbone only")
+    test_cfg = cfg.get("test_cfg") or {}
+    return InsPoseDetector(
+        num_classes=head.get("num_classes", 1),
+        num_keypoints=head.get("num_keypoints", 17),
+        backbone_depth=backbone.get("depth", 50),
+        feat_channels=head.get("feat_channels", 256),
+        feat_channels_kpt=head.get("feat_channels_kpt", 512),
+        feat_channels_hm=head.get("feat_channels_hm", 512),
+        stacked_convs=head.get("stacked_convs", 4),
+        stacked_convs_kpt=head.get("stacked_convs_kpt", 4),
+        stacked_convs_hm=head.get("stacked_convs_hm", 3),
+        with_hm=head.get("with_hm_loss", True),
+        strides=tuple(head.get("strides", (8, 16, 32, 64, 128))),
+        center_sampling=head.get("center_sampling", False),
+        center_sample_radius=head.get("center_sample_radius", 1.5),
+        loss_cls_weight=_loss_weight(head, "loss_cls", 1.0),
+        loss_hm_weight=_loss_weight(head, "loss_hm", 1.0),
+        score_thr=test_cfg.get("score_thr", 0.05),
+        max_per_img=test_cfg.get("max_per_img", 100),
+        impl=impl, dtype=dtype)
+
+
 def build_detector(cfg: dict, impl: str = "auto",
                    dtype: torch.dtype = torch.float32):
-    """Build the detector (``VideoPoseDetector`` or ``SOITDetector``) from
-    a reference-style model config, in activation dtype ``dtype`` (see
-    ``config.resolve_act_dtype``).
+    """Build the detector (``VideoPoseDetector``, ``SOITDetector`` or
+    ``InsPoseDetector``) from a reference-style model config, in activation
+    dtype ``dtype`` (see ``config.resolve_act_dtype``).
 
     ``encoder.mode`` is 'deformable' (the default) or 'windowed';
     VideoPoseV2 trains with backbone and neck frozen. Raises on what the
-    port does not have: another detector (InsPose), backbone or head,
-    another encoder mode, and a keypoint loss other than RLE and L1. The
-    neck takes its input widths from the backbone.
+    port does not have: another detector, backbone or head, another
+    encoder mode, and a keypoint loss other than RLE and L1. The neck takes
+    its input widths from the backbone.
     """
     det_type = _type_name(cfg)
     if det_type in ("SOIT", "DKDETR"):
         return _build_soit(cfg, impl, dtype)
+    if det_type == "InsPose":
+        return _build_inspose(cfg, impl, dtype)
     if det_type not in ("VideoPoseV1", "VideoPoseV2", "PETR"):
         raise KeyError(f"unsupported detector type {det_type!r} (the port "
-                       "has VideoPoseV1, VideoPoseV2, PETR, SOIT and "
-                       "DKDETR)")
+                       "has VideoPoseV1, VideoPoseV2, PETR, SOIT, DKDETR "
+                       "and InsPose)")
     backbone = _backbone_kwargs(cfg.get("backbone", {}))
     head = cfg.get("bbox_head", {})
     head_type = _type_name(head, "PETRHead" if det_type == "PETR"

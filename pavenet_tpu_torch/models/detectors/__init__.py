@@ -1,4 +1,5 @@
+from .inspose import InsPoseDetector
 from .soit import SOITDetector
 from .videopose import VideoPoseDetector
 
-__all__ = ["SOITDetector", "VideoPoseDetector"]
+__all__ = ["InsPoseDetector", "SOITDetector", "VideoPoseDetector"]

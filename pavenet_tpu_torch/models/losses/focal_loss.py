@@ -1,7 +1,9 @@
 """Focal losses (as ``pavenet_tpu/models/losses/focal_loss.py``):
 ``sigmoid_focal_loss``, mmdet ``FocalLoss(use_sigmoid=True)``, where a
 label equal to the class count means background; ``center_focal_loss``,
-CornerNet's penalty-reduced heatmap loss (PETR's ``loss_hm``)."""
+CornerNet's penalty-reduced heatmap loss (PETR's and InsPose's
+``loss_hm``); ``varifocal_loss``, mmdet ``VarifocalLoss`` (InsPose's
+``loss_cls``)."""
 from __future__ import annotations
 
 import torch
@@ -47,3 +49,18 @@ def center_focal_loss(pred: torch.Tensor, gt: torch.Tensor, mask=None,
     total = -(pos_loss.sum() + neg_loss.sum())
     return torch.where(num_pos > 0, total / num_pos.clamp(min=1.0),
                        -neg_loss.sum())
+
+
+def varifocal_loss(logits: torch.Tensor, target_score: torch.Tensor,
+                   gamma: float = 2.0, alpha: float = 0.75,
+                   avg_factor=1.0) -> torch.Tensor:
+    """mmdet ``VarifocalLoss(use_sigmoid=True, iou_weighted=True)``:
+    ``target_score`` a soft quality in [0, 1] (InsPose: the decoded pose's
+    OKS), positives (> 0) weighted by it and negatives by
+    ``alpha * |p - t| ** gamma``; the sum over ``avg_factor``."""
+    p = torch.sigmoid(logits)
+    t = target_score.to(logits.dtype)
+    pos = (t > 0.0).to(logits.dtype)
+    focal_weight = t * pos + alpha * (p - t).abs() ** gamma * (1.0 - pos)
+    bce = -(t * F.logsigmoid(logits) + (1.0 - t) * F.logsigmoid(-logits))
+    return (bce * focal_weight).sum() / avg_factor

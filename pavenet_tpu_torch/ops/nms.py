@@ -1,7 +1,8 @@
-"""Greedy OKS-NMS and box NMS in plain tensor code (as
+"""Greedy OKS-NMS, box NMS and linear soft-NMS (as
 ``pavenet_tpu/ops/nms.py``)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -42,15 +43,19 @@ def oks_nms_keep(kpts: torch.Tensor, scores: torch.Tensor,
 
 
 def box_iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU of ``(N, 4)`` xyxy boxes."""
+    """Pairwise IoU of ``(..., N, 4)`` xyxy boxes: ``(..., N, N)``."""
     x1, y1, x2, y2 = boxes.unbind(-1)
     area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
-    iw = (torch.minimum(x2[:, None], x2[None]) -
-          torch.maximum(x1[:, None], x1[None])).clamp(min=0)
-    ih = (torch.minimum(y2[:, None], y2[None]) -
-          torch.maximum(y1[:, None], y1[None])).clamp(min=0)
+
+    def pair(a, b, op):
+        return op(a[..., :, None], b[..., None, :])
+
+    iw = (pair(x2, x2, torch.minimum) - pair(x1, x1, torch.maximum)).clamp(
+        min=0)
+    ih = (pair(y2, y2, torch.minimum) - pair(y1, y1, torch.maximum)).clamp(
+        min=0)
     inter = iw * ih
-    union = area[:, None] + area[None] - inter
+    union = area[..., :, None] + area[..., None, :] - inter
     return inter / union.clamp(min=1e-9)
 
 
@@ -63,3 +68,37 @@ def box_nms_keep(boxes: torch.Tensor, scores: torch.Tensor,
     scores = torch.where(scores > score_thr, scores,
                          torch.full_like(scores, -float("inf")))
     return _greedy_keep(scores, box_iou_matrix(boxes) > iou_thr)
+
+
+def soft_nms_scores(boxes: torch.Tensor, scores: torch.Tensor,
+                    iou_thr: float = 0.3) -> torch.Tensor:
+    """Linear soft-NMS (mmcv ``soft_nms``, ``method='linear'``; InsPose's
+    test config, IoU 0.3): the decayed scores of ``(..., N)`` candidates
+    with ``(..., N, 4)`` xyxy boxes, float32, on the scores' device.
+
+    Each of the N greedy rounds picks the highest unprocessed score (the
+    first on a tie) and multiplies every other unprocessed score by
+    ``1 - iou`` where its IoU with the pick is above ``iou_thr``. The IoU
+    matrix is formed where the boxes lie; the rounds, which are sequential
+    and tiny, run on the host in float32 after one copy (the arithmetic
+    and its order are the JAX loop's), vectorised over the leading
+    axes."""
+    iou = box_iou_matrix(boxes.float()).cpu().numpy()
+    cur = scores.detach().float().cpu().numpy().copy()
+    lead, N = cur.shape[:-1], cur.shape[-1]
+    iou = iou.reshape(-1, N, N)
+    cur = cur.reshape(-1, N)
+    rows = np.arange(cur.shape[0])
+    processed = np.zeros(cur.shape, bool)
+    one = np.float32(1.0)
+    for _ in range(N):
+        masked = np.where(processed, -np.inf, cur).astype(np.float32)
+        i = masked.argmax(-1)
+        valid = np.isfinite(masked[rows, i])
+        row = iou[rows, i]                                   # (R, N)
+        decay = np.where(row > iou_thr, one - row, one)
+        decay = np.where(valid[:, None], decay, one)
+        sel = np.arange(N)[None] == i[:, None]
+        cur = np.where(processed | sel, cur, cur * decay)
+        processed |= sel
+    return torch.from_numpy(cur.reshape(*lead, N)).to(scores.device)

@@ -1,5 +1,6 @@
 """Evaluate a checkpoint on a dataset (as ``tools/test.py`` of the JAX
-package: keypoint models, and the detection models SOIT and DK-DETR).
+package: keypoint models, and the single-image models SOIT, DK-DETR and
+InsPose).
 
     python -m pavenet_tpu_torch.tools.test <config.py> <checkpoint>
         [--eval keypoints] [--out dets.json] [--format-only]
@@ -24,12 +25,14 @@ dataset, the detections are gathered in rank order
 (``gather_detections``), and rank 0 writes ``--out`` and evaluates; the
 other ranks return ``metrics`` None.
 
-A detection model (SOIT, DK-DETR) takes host-normalised single images
-(``normalize_on_device`` stays off unless the config sets it), DK-DETR the
-class embeddings of ``model.text_encoder.text_feat_path`` (one row per
-class of the dataset), keeps the detections of ``test_cfg.score_thr``
-(default 0.05) and up, writes ``--out`` without the masks, and evaluates
-box and mask AP or the dataset's own protocol (LVIS, VOC mAP);
+A single-image model (SOIT, DK-DETR, InsPose) takes host-normalised single
+images (``normalize_on_device`` stays off unless the config sets it),
+DK-DETR the class embeddings of ``model.text_encoder.text_feat_path`` (one
+row per class of the dataset), keeps the detections of
+``test_cfg.score_thr`` (default 0.05) and up, writes ``--out`` without the
+masks, and evaluates box and mask AP or the dataset's own protocol (LVIS,
+VOC mAP); InsPose's detections are boxes (its keypoints' extent and
+soft-NMS score), evaluated as box AP, as the JAX CLI evaluates them;
 ``--flip-test`` and ``--aug-scales`` are for keypoint models.
 
 Not here: ``--show``, ``--show-dir``, ``--show-score-thr``,
@@ -100,7 +103,8 @@ def _test(args, cfg, device) -> dict:
                                              run_inference)
     from pavenet_tpu_torch.datasets import ClipLoader
     from pavenet_tpu_torch.datasets.pipelines import build_test_pipeline
-    from pavenet_tpu_torch.models.detectors.soit import SOITDetector
+    from pavenet_tpu_torch.models.detectors import (InsPoseDetector,
+                                                    SOITDetector)
     from pavenet_tpu_torch.models.text_encoder import PseudoTextEncoder
     from pavenet_tpu_torch.parallel import dist
     from pavenet_tpu_torch.tools.train import (build_dataset,
@@ -110,7 +114,7 @@ def _test(args, cfg, device) -> dict:
     logger = rank_logger(None)
     model = init_detector(cfg, device=device, dtype=args.dtype,
                           checkpoint=args.checkpoint)
-    is_det = isinstance(model, SOITDetector)
+    is_det = isinstance(model, (SOITDetector, InsPoseDetector))
     if is_det:
         if args.flip_test or args.aug_scales:
             raise SystemExit("--flip-test and --aug-scales are for keypoint "

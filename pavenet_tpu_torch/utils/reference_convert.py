@@ -1,10 +1,11 @@
 """Reference (mmdet / opera) PyTorch checkpoints -> the port's
 ``state_dict`` (as ``pavenet_tpu/utils/weight_convert.py``'s
-``convert_{videopose,petr,soit}_state_dict`` and ``load_torch_checkpoint``,
+``convert_{videopose,petr,soit,inspose}_state_dict`` and
+``load_torch_checkpoint``,
 dispatched by model as ``tools/dataset_converters/torch2flax.py``).
 
 Both sides are PyTorch layouts, so the conversion is a table of rules, each
-naming reference keys, port keys and one of four layout kinds:
+naming reference keys, port keys and one of five layout kinds:
 
 - ``copy``: one tensor, unchanged (Linear, Conv, norms, BatchNorm
   statistics, embeddings, Swin's ``relative_position_bias_table``);
@@ -15,7 +16,10 @@ naming reference keys, port keys and one of four layout kinds:
   the output axis;
 - ``perm``: Swin's ``PatchMerging``, whose ``nn.Unfold`` orders the 2x2
   neighbourhood channel-major where the port concatenates position-major:
-  the reduction's input columns and the norm are permuted.
+  the reduction's input columns and the norm are permuted;
+- ``dcn``: InsPose's star ``DeformConv2d`` weight (o, i, 3, 3) as the
+  port's ``Linear(9i, o)`` over tap-major, channel-minor patches
+  (``models/detectors/inspose.py::DeformConvGN``): (o, 9i).
 
 The table follows the JAX converter key for key, with what it reads
 whatever the model (``reference_rules``): the video tree reads
@@ -27,8 +31,7 @@ init, as the JAX converter's ``init_params``. JAX refuses a video tree
 with a Swin or HRNet backbone, and so does the port. ``strict`` refuses
 reference keys that no rule reads (``num_batches_tracked`` aside, and for
 the video tree mmcv's ``.mask`` and ``prior`` buffers), and the unused
-keys are returned either way. InsPose's converter comes with the InsPose
-port.
+keys are returned either way.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import torch.nn as nn
 
 from ..models.backbones.hrnet import HRNET_EXTRA
 from ..models.backbones.resnet import ARCH_SETTINGS
+from ..models.detectors.inspose import InsPoseDetector
 from ..models.detectors.soit import SOITDetector
 from ..models.detectors.videopose import VideoPoseDetector
 from .weight_convert import TRAIN_ONLY
@@ -363,6 +367,44 @@ def _soit_rules(r: _Rules, model: SOITDetector):
                   (0, 2, 4))
 
 
+def _inspose_rules(r: _Rules, model: InsPoseDetector):
+    """``convert_inspose_state_dict``: mmdet's FPN (``lateral_convs``,
+    ``fpn_convs`` with the extra convolutions at its tail) and the head's
+    ConvModule towers, heads and star DeformConv2d + GroupNorm pairs."""
+    _resnet(r, model.backbone.depth)
+    neck = model.neck
+    for i in range(neck.num_levels):
+        r.copy(f"neck.lateral_convs.{i}.conv", f"neck.lateral{i}")
+        r.copy(f"neck.fpn_convs.{i}.conv", f"neck.fpn{i}")
+    for j in range(neck.num_extra):
+        r.copy(f"neck.fpn_convs.{neck.num_levels + j}.conv",
+               f"neck.fpn_extra{j}")
+    bh = "bbox_head"
+
+    def convgn(ref, port):
+        r.conv(f"{ref}.conv", f"{port}.Conv_0")
+        r.copy(f"{ref}.gn", f"{port}.GroupNorm_0")
+
+    for i in range(model.stacked_convs):
+        convgn(f"{bh}.cls_convs.{i}", f"cls_tower{i}")
+        convgn(f"{bh}.ctrl_convs.{i}", f"ctrl_tower{i}")
+    for i in range(model.stacked_convs_kpt):
+        convgn(f"{bh}.kpt_convs.{i}", f"kpt_tower{i}")
+    for i in range(4):
+        convgn(f"{bh}.shared_convs.{i}", f"shared_tower{i}")
+    convgn(f"{bh}.shared_convs.4", "shared_out")
+    for name in ("conv_cls", "controller", "kpt_offset"):
+        r.copy(f"{bh}.{name}", name)
+    for name in ("cls_star", "ctr_star"):
+        r.add("dcn", [f"{bh}.{name}_conv.weight"], [f"{name}.kernel.weight"])
+        r.copy(f"{bh}.{name}_gn", f"{name}.GroupNorm_0")
+    if model.with_hm:
+        for i in range(model.stacked_convs_hm):
+            convgn(f"{bh}.hm_convs.{i}", f"hm_tower{i}")
+        for name in ("hm_pred", "ae_pred", "hm_offset"):
+            r.copy(f"{bh}.{name}", name)
+
+
 def _video_ignored(key: str) -> bool:
     return ".mask" in key or "prior" in key
 
@@ -372,10 +414,13 @@ def reference_rules(model: nn.Module) -> Tuple[List[Rule],
     """The rule table of ``model`` and the predicate of the reference keys
     that ``strict`` ignores besides ``num_batches_tracked``. Raises
     ``ValueError`` where the JAX converter has no tree (a video model with
-    a Swin or HRNet backbone, InsPose)."""
+    a Swin or HRNet backbone)."""
     r = _Rules(model.state_dict())
     if isinstance(model, SOITDetector):
         _soit_rules(r, model)
+        return r.rules, lambda k: False
+    if isinstance(model, InsPoseDetector):
+        _inspose_rules(r, model)
         return r.rules, lambda k: False
     if not isinstance(model, VideoPoseDetector):
         raise ValueError(f"no reference converter for "
@@ -401,6 +446,9 @@ def _apply(rule: Rule, arrays: List[torch.Tensor]) -> List[torch.Tensor]:
     if rule.kind == "perm":
         perm, axis = rule.arg
         return [arrays[0].index_select(axis, torch.as_tensor(perm))]
+    if rule.kind == "dcn":
+        w = arrays[0]
+        return [w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)]
     raise KeyError(rule.kind)
 
 

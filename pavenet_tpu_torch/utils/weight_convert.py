@@ -27,7 +27,10 @@ top-level tree (``encoder_layer{i}``, ``seg_encoder_layer``,
 ``mask_trans(_norm)``, ``enc_output(_norm)``, ``pos_trans(_norm)``,
 ``dec_self_attn{i}``, ``dec_cross_attn{i}``, ``dec_norm{1,2,3}_{i}``,
 ``dec_ffn{i}``, ``cls_branch{i}``, ``reg_branch{i}``, ``seg_branch{i}``,
-``level_embeds``; a SOIT init makes no train-only subtree) convert like
+``level_embeds``; a SOIT init makes no train-only subtree) and InsPose's
+(the FPN's ``lateral{i}``, ``fpn{i}``, ``fpn_extra{j}``; ``ConvGN``'s
+``Conv_0`` and ``GroupNorm_0``; ``DeformConvGN``'s Dense ``kernel`` over
+the tap-major patches, ``(9C, F)`` -> ``Linear`` ``(F, 9C)``) convert like
 any other tree.
 """
 from __future__ import annotations

@@ -187,9 +187,18 @@ def test_builder_builds_the_synthetic_recipe_and_v2():
     jcfg["type"] = "VideoPoseV2"
     assert build_detector(cfg.model).freeze_backbone_neck is True
     assert jbuilder.build_detector(jcfg).freeze_backbone_neck is True
+    # a PoseTrack config typed InsPose: JAX builds an InsPose from its
+    # ResNet and the head's fields, and so does the port
     cfg.model.type = "InsPose"
-    with pytest.raises(KeyError, match="detector type"):
-        build_detector(cfg.model)
+    jcfg["type"] = "InsPose"
+    jmodel = jbuilder.build_detector(jcfg)
+    with torch.device("meta"):
+        model = build_detector(cfg.model)
+    assert type(jmodel).__name__ == type(model).__name__ == "InsPoseDetector"
+    assert (model.num_keypoints, model.backbone.depth, model.max_per_img,
+            model.center_sampling, model.strides) == (
+                jmodel.num_keypoints, jmodel.backbone_depth,
+                jmodel.max_per_img, jmodel.center_sampling, jmodel.strides)
 
 
 def test_init_trainer_reads_the_synthetic_recipe():

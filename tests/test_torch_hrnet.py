@@ -10,8 +10,8 @@ package, on the CPU.
   check's ``BF16_STAGE_TOL``).
 - The port's builder on the meta device: every config under
   ``configs/petr/`` and ``configs/petr/pretrained/`` builds with no JAX;
-  the InsPose config still raises (SOIT and DK-DETR build:
-  ``tests/test_torch_soit_parts.py``).
+  the InsPose config builds an ``InsPoseDetector`` with JAX's fields
+  (SOIT and DK-DETR build: ``tests/test_torch_soit_parts.py``).
 - Four full-width configs (R50 PETR, HRNet-W48 PETR, Swin-L PETR on
   CrowdPose, HRNet-W48 video pretraining at T=3): the port's state dict has
   every key and shape of ``jax.eval_shape`` of the JAX train-mode init,
@@ -36,7 +36,7 @@ from pavenet_tpu.models.backbones.hrnet import HRNet as JHRNet
 from pavenet_tpu.models.builder import build_detector as jax_build_detector
 from pavenet_tpu.models.zoo import dummy_clip_batch as j_dummy_clip_batch
 from pavenet_tpu_torch.config import Config
-from pavenet_tpu_torch.models import build_detector
+from pavenet_tpu_torch.models import InsPoseDetector, build_detector
 from pavenet_tpu_torch.models.backbones.hrnet import HRNet
 from pavenet_tpu_torch.utils.weight_convert import jax_variables_to_state_dict
 from tests.test_torch_swin import converted_shapes
@@ -97,9 +97,18 @@ def test_every_petr_config_builds():
         assert model.head.with_heatmap == petr, path
         assert (model.with_rescoring, model.with_nms) == (not petr,) * 2
         assert model.head.detach_decoder_refs == petr, path
-    with pytest.raises(KeyError, match="unsupported detector type"):
-        build_detector(Config.fromfile(os.path.join(
-            REPO, "configs/inspose/inspose_r50_8x4_3x_coco.py")).model)
+    path = os.path.join(REPO, "configs/inspose/inspose_r50_8x4_3x_coco.py")
+    with torch.device("meta"):
+        model = build_detector(Config.fromfile(path).model)
+    jmodel = jax_build_detector(JConfig.fromfile(path).model)
+    assert isinstance(model, InsPoseDetector)
+    assert model.num_keypoints == jmodel.num_keypoints == 17
+    assert model.backbone.depth == jmodel.backbone_depth == 50
+    assert model.max_per_img == jmodel.max_per_img == 100
+    for field in ("strides", "center_sampling", "center_sample_radius",
+                  "score_thr", "with_hm", "stacked_convs",
+                  "stacked_convs_kpt", "stacked_convs_hm"):
+        assert getattr(model, field) == getattr(jmodel, field), field
 
 
 def test_full_width_configs_build_with_the_jax_tree():

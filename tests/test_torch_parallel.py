@@ -16,7 +16,11 @@ device.
   ranks and with the single process within ``1e-4 + 1e-4 |a|``; after the
   accumulation boundary the parameters and BatchNorm's running statistics
   agree within atol 5e-5, rtol 5e-4 (the JAX test's tolerances), and they
-  moved. Both sides run in float64: the comparison is of the
+  moved. A tiny InsPose's losses and parameter gradients on each rank's
+  rows add up to the single process's on the global batch (its
+  normalisers: positives plus images, visible keypoints, offset and
+  heatmap-offset counts, the AE terms' images are global sums). Both
+  sides run in float64: the comparison is of the
   synchronisation, and float32 rounding through train-mode BatchNorm
   alone moves gradients by up to 3.9e-4 of a tensor's largest
   (``tests/test_torch_trainable_bn.py``), which AdamW's first step turns
@@ -60,6 +64,8 @@ from pavenet_tpu_torch.apis.test import (gather_detections,  # noqa: E402
                                          run_det_inference, run_inference)
 from pavenet_tpu_torch.datasets import ClipLoader  # noqa: E402
 from pavenet_tpu_torch.models import dummy_clip_batch  # noqa: E402
+from pavenet_tpu_torch.models.detectors.inspose import (  # noqa: E402
+    InsPoseDetector)
 from pavenet_tpu_torch.models.zoo import (pavenet_r50_frames3,  # noqa: E402
                                           soit_r50_coco)
 from pavenet_tpu_torch.parallel import dist  # noqa: E402
@@ -74,6 +80,10 @@ DET_TOY = dict(num_classes=5, num_query=12, max_gt=4, backbone_depth=18,
                embed_dims=32, num_encoder_layers=1, num_decoder_layers=1,
                feedforward_channels=64, max_per_img=6, cls_emb_dim=16,
                dropout=0.0)
+INSPOSE_TOY = dict(num_keypoints=17, backbone_depth=18,
+                   feat_channels=32, feat_channels_kpt=32,
+                   feat_channels_hm=32, shared_channels=32, stacked_convs=1,
+                   stacked_convs_kpt=1, stacked_convs_hm=2, max_per_img=4)
 F64 = torch.float64
 LOSS_TOL = (1e-4, 1e-4)       # abs, rel
 STATE_TOL = dict(atol=5e-5, rtol=5e-4)
@@ -120,6 +130,37 @@ def det_batch():
         scale_factor=np.ones((B, 2), np.float32),
         image_id=np.arange(B, dtype=np.int64),
         _row_valid=np.arange(B) < B - 1)
+
+
+def inspose_batch():
+    """Four images at 64x96 with 3 GT slots: boxes, keypoints inside them
+    (a third invisible), 3, 2, 1 and 0 valid slots."""
+    rng = np.random.RandomState(4)
+    B, H, W, G, K = ROWS * WORLD, 64, 96, 3, 17
+    x0, y0 = rng.uniform(0, 50, (B, G)), rng.uniform(0, 30, (B, G))
+    bw, bh = rng.uniform(15, 45, (B, G)), rng.uniform(15, 30, (B, G))
+    kpts = np.stack([x0[..., None] + rng.rand(B, G, K) * bw[..., None],
+                     y0[..., None] + rng.rand(B, G, K) * bh[..., None],
+                     (rng.rand(B, G, K) > 0.3) * 2.0], -1)
+    return dict(img=rng.randn(B, H, W, 3),
+                img_shape=np.tile(np.array([[H, W]], np.int32), (B, 1)),
+                gt_boxes=np.stack([x0, y0, x0 + bw, y0 + bh], -1),
+                gt_keypoints=kpts,
+                gt_valid=np.arange(G)[None] < np.array([3, 2, 1, 0])[:, None])
+
+
+def inspose_run(batch):
+    """The tiny InsPose's losses and parameter gradients in float64 on
+    ``batch``: on a rank, its share of the global batch's."""
+    model = InsPoseDetector(**INSPOSE_TOY, dtype=F64)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.double()
+    losses = model.forward_train({k: torch.from_numpy(np.asarray(v))
+                                  for k, v in batch.items()})
+    losses["loss"].backward()
+    return dict(losses={k: v.item() for k, v in losses.items()},
+                grads={n: p.grad.clone() for n, p in model.named_parameters()
+                       if p.grad is not None})
 
 
 def text_feats():
@@ -202,6 +243,7 @@ def worker(mode, out, argv):
             world=dist.world_size(), rank=r, train=train_run(mine),
             resumed=resume_run(mine, os.path.join(out, "mid_update.pt")),
             distill=distill_run(rows(train_batches()[0], r)),
+            inspose=inspose_run(rows(inspose_batch(), r)),
             infer=inference_run(rows(pose_batch(), r),
                                 rows(det_batch(), r)))
         dist.destroy()
@@ -259,6 +301,7 @@ def ranks(tmp_path_factory):
     try:
         single = dict(train=train_run(train_batches()),
                       distill=distill_run(train_batches()[0]),
+                      inspose=inspose_run(inspose_batch()),
                       infer=inference_run(pose_batch(), det_batch()))
     finally:
         torch.set_num_threads(n)
@@ -376,6 +419,20 @@ def test_train_step_over_two_ranks_equals_one_process(ranks):
     assert len(stats) == 2 * 20
     assert all(not torch.equal(init[k], a[k]) for k in stats)
     assert sum(not torch.equal(init[k], a[k]) for k in init) > len(init) // 2
+
+    # InsPose: the ranks' shares add up to the global batch's losses and
+    # gradients
+    want = ranks["single"]["inspose"]
+    parts = [r["inspose"] for r in ranks["steps"]]
+    assert len(want["losses"]) == 8
+    for k, a in want["losses"].items():
+        assert close(a, sum(p["losses"][k] for p in parts), *LOSS_TOL), k
+    assert len(want["grads"]) > 100
+    for n, g in want["grads"].items():
+        got = sum(p["grads"].get(n, torch.zeros_like(g)) for p in parts)
+        np.testing.assert_allclose(got.numpy(), g.numpy(), rtol=0,
+                                   atol=1e-6 * g.abs().max().item() + 1e-12,
+                                   err_msg=n)
 
 
 def test_resume_over_two_ranks_mid_accumulation(ranks):
