@@ -10,7 +10,9 @@ DK-DETR (instance masks, text-embedding classes) with instance scenes and
 a VOC tree through the test CLI; data parallelism over two ranks on the
 card against one process, the CLIs under a launcher, and reference
 ``.pth`` checkpoints; InsPose (star deformable convolutions on the msda
-kernels) serving, training, from a ``.pth`` and through the test CLI.
+kernels) serving, training, from a ``.pth`` and through the test CLI;
+``get_flops``, the train CLI's ``--synthetic`` run with a profiler trace,
+the test CLI's ``--show-dir`` renders and the demo.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parent DIR   # only phases 1-3 and the comparison
@@ -244,6 +246,24 @@ non-zero):
    checks) and ``tools.test.main`` with it on phase 23's COCO scenes: 10
    launches per image, boxes of category 1 without masks, box AP (as the
    JAX CLI scores InsPose).
+33. ``tools.get_flops.main`` on the card at 800x1344: the flagship (its
+   parameter count equal to the model's built on the card, positive FLOPs,
+   the msda line from exactly 11 forward launches), then PETR R50 (11),
+   SOIT R50 (13) and InsPose R50 (10) with their counts.
+34. ``tools.train.main --synthetic --max-steps 5 --profile-dir DIR
+   --no-validate`` on the flagship (256x448 clips): 11+11 launches per
+   mini-step, finite losses; the Chrome trace is valid JSON, holds exactly
+   the ranges of mini-steps 3 and 4 and, among its device events, 11 msda
+   forward and 11 backward kernels per traced step; ms per mini-step with
+   and without the trace, the trace's size.
+35. ``tools.test.main --show --show-dir`` without a DISPLAY (it warns and
+   writes) on phase 14's checkpoint and scenes and on phase 26's SOIT
+   checkpoint and instance scenes (masks): one file per test image with
+   detections, each the bytes ``utils.visualize.render_detections`` writes
+   of the same detections; ms per image rendered. Then the demo
+   (``pavenet_tpu_torch.demo.image_demo``) on three 720x1280 frames from
+   phase 34's checkpoint: its pose count that of ``inference_detector`` on
+   the same frames.
 
 Each run sets every launch count to 0 just before it and reads them just
 after. The last two lines are the kernels' JSON record (launches by run,
@@ -251,6 +271,7 @@ bf16 launches beside them) and the contract line
 ``{"ok": true, "device": {...}}``.
 """
 import json
+import math
 import os
 import signal
 import statistics
@@ -310,10 +331,6 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
-# flops per in-range tap and channel, corner weights counted once per tap:
-# forward 4 corner FMAs + the weighted sum; backward the bilinear value,
-# its x and y derivatives, three dot products and four scaled atomics
-FWD_FLOPS, BWD_FLOPS = 10, 34
 # phase 14: the scenes and the two train runs' mini-steps
 CHIP_DATA = ROOT / "build" / "chip_data"
 CHIP_WORK = ROOT / "build" / "chip_work"
@@ -393,6 +410,19 @@ INSPOSE_CAPTURE = ("inspose_l0_cls_star", "inspose_l4_cls_star")
 # f32 serving, kernels vs plain: level outputs and heatmap logits (relative
 # to their largest), keypoints (px) and soft-NMS scores
 INSPOSE_TOL = dict(stages=1e-4, kpts=1e-2, scores=1e-4)
+# phase 33: get_flops on the flagship (11 msda launches), then PETR R50
+# (11), SOIT R50 (13, and its dynamic-mask call on the plain version, which
+# the msda line counts too) and InsPose R50 (10), each at the 800x1344 eval
+# bucket: name, config, launches, msda calls counted
+FLOPS_RUNS = (("flagship", CONFIG, CALLS_PER_CLIP, CALLS_PER_CLIP),
+              ("petr", PETR_CONFIG, CALLS_PER_CLIP, CALLS_PER_CLIP),
+              ("soit", SOIT_CONFIG, SOIT_CALLS, SOIT_CALLS + 1),
+              ("inspose", INSPOSE_CONFIG, INSPOSE_CALLS, INSPOSE_CALLS))
+# phase 34: the train CLI's --synthetic run, mini-steps 3-4 traced
+SYNTHETIC_PROFILE_STEPS = 5
+PROFILED_STEPS = (3, 4)
+# phase 35: the demo's frames
+DEMO_FRAMES = 3
 # msda kernel vs plain: max abs error within these fractions of the plain
 # version's max |out| (|grad|), f32 and bf16
 MSDA_FWD_TOL = (("float32", 1e-5), ("bfloat16", 1e-2))
@@ -439,7 +469,10 @@ def pixel_coords(loc, levels):
 def msda_bound(backward, value, levels, loc):
     """Least time of one call on an H100: each input read once and each
     output written once over the HBM rate, against the flops of the taps
-    that lie in range (this run's data) over the f32 rate."""
+    that lie in range (this run's data) over the f32 rate
+    (``ops/flops.py::msda_flops``, which ``tools/get_flops.py`` counts
+    too)."""
+    from pavenet_tpu_torch.ops.flops import msda_flops
     B, N, H, D = value.shape
     _, Q, _, L, P, _ = loc.shape
     x, y, wh = pixel_coords(loc, levels)
@@ -450,10 +483,9 @@ def msda_bound(backward, value, levels, loc):
     loc_attn_bytes = B * Q * H * L * P * 3 * 4
     if backward:   # + g (f32) in; grad_value, grad_loc, grad_attn out
         nbytes = 2 * value_bytes + 2 * loc_attn_bytes + B * Q * H * D * 4
-        flops = taps * D * BWD_FLOPS
     else:          # + out
         nbytes = value_bytes + loc_attn_bytes + B * Q * H * D * vb
-        flops = taps * D * FWD_FLOPS
+    flops = msda_flops(taps, D, backward)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -842,16 +874,13 @@ def window_bound(backward, qs):
     window and head forward, five backward) over the tensor-core rate of
     the dtype: f32 as 3xTF32 (three TF32 products per product), bf16 at its
     own rate. Every window of the padded rasters counts: the function is
-    defined on them."""
+    defined on them (``ops/flops.py::window_flops``, which
+    ``tools/get_flops.py`` counts too)."""
     import torch
-    S = WINDOW[0] * WINDOW[1]
-    nbytes = flops = 0
-    for q in qs:
-        B, Hp, Wp, C = q.shape
-        nbytes += ((7 if backward else 4) * q.numel() * q.element_size()
-                   + B * Hp * Wp * 4)
-        windows = B * (Hp // WINDOW[0]) * (Wp // WINDOW[1])
-        flops += windows * (5 if backward else 2) * 2 * S * S * C
+    from pavenet_tpu_torch.ops.flops import window_flops
+    nbytes = sum((7 if backward else 4) * q.numel() * q.element_size()
+                 + q.shape[0] * q.shape[1] * q.shape[2] * 4 for q in qs)
+    flops = window_flops([q.shape for q in qs], WINDOW, backward)
     rate = TF32_FLOPS / 3 if qs[0].dtype == torch.float32 else BF16_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(t_bytes, t_ops) * 1e3,
@@ -2239,18 +2268,23 @@ def mask_call_record(model, batch, name):
     bound."""
     import torch
     from pavenet_tpu_torch.models.detectors import soit
-    calls, plain = [], soit.ms_deform_attn_torch
+    from pavenet_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
+    # the mask call is the detector module's only msda call of its own
+    calls, wrapper = [], soit.ms_deform_attn
 
-    def record(value, shapes, loc, attn):
-        calls.append((value, shapes, loc, attn))
-        return plain(value, shapes, loc, attn)
+    def record(value, shapes, loc, attn, impl="auto"):
+        calls.append((value, shapes, loc, attn, impl))
+        return wrapper(value, shapes, loc, attn, impl=impl)
 
-    soit.ms_deform_attn_torch = record
+    soit.ms_deform_attn = record
     try:
         model.forward_test(batch)
     finally:
-        soit.ms_deform_attn_torch = plain
-    (v, levels, loc, attn), = calls
+        soit.ms_deform_attn = wrapper
+    (v, levels, loc, attn, impl), = calls
+    if impl != "torch":
+        raise AssertionError(f"{name}: the mask call took impl={impl!r}")
+    plain = ms_deform_attn_torch
     bound_ms, bound_by = msda_bound(False, v, levels, loc)
     B, _, H, D = v.shape
     rec = dict(case=name, B=B, Q=loc.shape[1], H=H, L=loc.shape[3],
@@ -3347,6 +3381,233 @@ def inspose_family(smi, runs, serve_ms, fwd, bwd):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 33-35: get_flops, the synthetic train with a trace, rendering
+# ---------------------------------------------------------------------------
+def flops_phase(smi):
+    """Phase 33: ``tools.get_flops.main`` on the card at 800x1344: the
+    flagship (the count equals that of the model built on the card, FLOPs
+    positive, the msda line from exactly 11 forward launches), then PETR
+    R50, SOIT R50 (its plain dynamic-mask call counted on the msda line
+    too) and InsPose R50 (their own launches). Returns each run's
+    launches."""
+    import torch
+    from pavenet_tpu_torch.apis.inference import init_detector
+    from pavenet_tpu_torch.tools import get_flops
+    runs = {}
+    for name, config, calls, counted in FLOPS_RUNS:
+        reset_launches()
+        res = get_flops.main([str(ROOT / config), "--device", "cuda"])
+        runs[f"get_flops_{name}"] = launches = read_launches()
+        check_launches(f"get_flops {name}", launches, {"msda_fwd": calls}, 1)
+        f = res["flops"]
+        if not (f["msda_calls"] == counted and f["torch"] > 0
+                and f["msda"] > 0 and res["params"] > 0):
+            raise AssertionError(f"get_flops {name}: {res}")
+        if name == "flagship":
+            model = init_detector(str(ROOT / config), device="cuda")
+            on_card = get_flops.count_params(model)["total"]
+            del model
+            if on_card != res["params"]:
+                raise AssertionError(f"get_flops {name}: {res['params']} "
+                                     f"parameters, the model on the card "
+                                     f"{on_card}")
+        print(f"get_flops {name}: {res['params']:,} parameters (train-only "
+              f"{res['train_only']:,} apart), input {res['input']}: torch "
+              f"counter {f['torch']:.6g} FLOP, msda {f['msda_calls']} calls "
+              f"{f['msda']:.6g} FLOP, in all {f['total']:.6g} FLOP; "
+              f"launches {json.dumps(launches)}; {res['seconds']:.2f} s | "
+              f"{smi}", flush=True)
+        torch.cuda.empty_cache()
+    return runs
+
+
+def synthetic_profile(smi):
+    """Phase 34: ``tools.train.main --synthetic --max-steps 5
+    --profile-dir DIR --no-validate`` on the flagship: 11+11 msda launches
+    per mini-step, finite losses, and a Chrome trace (valid JSON) of
+    exactly mini-steps 3-4, whose device events hold 11 msda forward and 11
+    backward kernels per traced step. Returns the launches and the
+    checkpoint."""
+    import shutil
+    from pavenet_tpu_torch.tools import train as train_cli
+    work = CHIP_WORK / "synthetic_profile"
+    shutil.rmtree(work, ignore_errors=True)
+    reset_launches()
+    res = train_cli.main([str(ROOT / CONFIG), "--synthetic", "--max-steps",
+                          str(SYNTHETIC_PROFILE_STEPS), "--profile-dir",
+                          str(work / "trace"), "--no-validate", "--work-dir",
+                          str(work), "--device", "cuda"])
+    launches = read_launches()
+    check_launches("train CLI --synthetic", launches,
+                   {"msda_fwd": CALLS_PER_CLIP, "msda_bwd": CALLS_PER_CLIP},
+                   SYNTHETIC_PROFILE_STEPS)
+    if not (res["steps_run"] == SYNTHETIC_PROFILE_STEPS and res["losses"]
+            and all(math.isfinite(v) for v in res["losses"].values())):
+        raise AssertionError(f"train CLI --synthetic: {res}")
+    trace = Path(res["profile_trace"])
+    events = json.loads(trace.read_text())["traceEvents"]
+    # the host's ranges (the trace repeats each on the card's timeline as
+    # a gpu_user_annotation)
+    steps = sorted(e["name"] for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("mini_step_"))
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    traced = len(PROFILED_STEPS)
+    counts = {k: sum(f"{k}_kernel" in n for n in kernels)
+              for k in ("msda_fwd", "msda_bwd")}
+    if (steps != [f"mini_step_{n}" for n in PROFILED_STEPS]
+            or counts != {k: CALLS_PER_CLIP * traced for k in counts}):
+        raise AssertionError(f"trace {trace.name}: step ranges {steps}, "
+                             f"msda kernels {counts} among {len(kernels)} "
+                             f"device kernels")
+    print(f"synthetic_profile: tools.train.main --synthetic on "
+          f"{os.path.basename(CONFIG)} at 256x448, {res['steps_run']} "
+          f"mini-steps, losses {json.dumps(res['losses'])}, launches "
+          f"{json.dumps(launches)}; {res['step_ms']:.2f} ms per mini-step "
+          f"untraced, {res['profiled_step_ms']:.2f} traced (median, host "
+          f"clock); trace {trace.name} {trace.stat().st_size / 2 ** 20:.2f} "
+          f"MiB, {len(events)} events, {len(kernels)} device kernels, msda "
+          f"{json.dumps(counts)} | {smi}", flush=True)
+    return launches, res["checkpoint"]
+
+
+def render_run(smi, name, argv, calls, score_thr):
+    """``tools.test.main`` with ``--show --show-dir`` and no DISPLAY:
+    the warning, one file per test image with detections, each the bytes
+    ``utils.visualize.render_detections`` writes of the same detections
+    (read from the CLI's ``show_results``). Returns the launches."""
+    import logging
+    import shutil
+    from pavenet_tpu_torch.tools import test as test_cli
+    from pavenet_tpu_torch.utils.visualize import render_detections
+    show_dir = CHIP_WORK / "render" / name
+    shutil.rmtree(show_dir, ignore_errors=True)
+    seen, warned = [], []
+    show_results = test_cli.show_results
+
+    def recording(dataset, detections, *args, **kwargs):
+        seen.append((dataset, detections))
+        return show_results(dataset, detections, *args, **kwargs)
+
+    class Warned(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    handler = Warned(logging.WARNING)
+    logger = logging.getLogger("pavenet_tpu_torch")
+    display = os.environ.pop("DISPLAY", None)
+    test_cli.show_results = recording
+    logger.addHandler(handler)
+    try:
+        reset_launches()
+        res = test_cli.main(argv + ["--show", "--show-dir", str(show_dir),
+                                    "--show-score-thr", str(score_thr)])
+        launches = read_launches()
+    finally:
+        test_cli.show_results = show_results
+        logger.removeHandler(handler)
+        if display is not None:
+            os.environ["DISPLAY"] = display
+    check_launches(f"{name}, {res['clips']} images", launches,
+                   {"msda_fwd": calls}, res["clips"])
+    (dataset, detections), = seen
+    by_img = {}
+    for d in detections:
+        by_img.setdefault(d["image_id"], []).append(d)
+    infos = {info["id"]: info for info in dataset.data_infos}
+    written = sorted(str(p.relative_to(show_dir))
+                     for p in show_dir.rglob("*") if p.is_file())
+    if not (any("headless" in w for w in warned) and res["rendered"]
+            == len(by_img) > 0 and written == sorted(
+                infos[i]["file_name"] for i in by_img)):
+        raise AssertionError(f"{name}: warnings {warned}, rendered "
+                             f"{res.get('rendered')} of {len(by_img)} "
+                             f"images, files {written}")
+    check = CHIP_WORK / "render" / f"{name}_check"
+    check.mkdir(parents=True, exist_ok=True)
+    masks = 0
+    for i, (img_id, dets) in enumerate(by_img.items()):
+        file_name = infos[img_id]["file_name"]
+        out = check / f"{i}{Path(file_name).suffix}"
+        render_detections(os.path.join(dataset.img_prefix, file_name), dets,
+                          score_thr=score_thr, out_file=str(out),
+                          class_names=getattr(dataset, "CLASSES", None))
+        if out.read_bytes() != (show_dir / file_name).read_bytes():
+            raise AssertionError(f"{name}: {file_name} differs from "
+                                 f"render_detections of its detections")
+        masks += sum("segmentation" in d for d in dets)
+    print(f"{name}: tools.test.main --show --show-dir without DISPLAY "
+          f"(warned): {res['rendered']} of {res['clips']} test images "
+          f"rendered ({len(detections)} detections, {masks} masks) equal to "
+          f"render_detections; {1e3 * res['render_s'] / res['rendered']:.2f}"
+          f" ms per image rendered; launches {json.dumps(launches)} | {smi}",
+          flush=True)
+    return launches
+
+
+def demo_run(smi, ckpt):
+    """The demo on three 720x1280 frames on the flagship from ``ckpt``
+    (written by ``utils/checkpoint.py``): its image written, its pose count
+    that of ``inference_detector`` on the same frames. Returns the
+    launches."""
+    import cv2
+    import numpy as np
+    from pavenet_tpu_torch.apis.inference import (inference_detector,
+                                                  init_detector)
+    from pavenet_tpu_torch.demo import image_demo
+    work = CHIP_WORK / "demo"
+    work.mkdir(parents=True, exist_ok=True)
+    frames = []
+    for t, img in enumerate(synthetic_clips(seed=5)[0][:DEMO_FRAMES]):
+        frames.append(str(work / f"frame{t}.png"))
+        cv2.imwrite(frames[-1], img)
+    out_file = work / "demo.jpg"
+    thr = 0.0   # every kept pose: the count is keep's
+    reset_launches()
+    t0 = time.perf_counter()
+    res = image_demo.main(frames + [str(ROOT / CONFIG), str(ckpt),
+                                    "--out-file", str(out_file),
+                                    "--score-thr", str(thr)])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    check_launches("demo", launches, {"msda_fwd": CALLS_PER_CLIP}, 1)
+    out = inference_detector(init_detector(str(ROOT / CONFIG),
+                                           checkpoint=str(ckpt)), frames)
+    want = int((np.asarray(out["det_bboxes"])[out["keep"]][:, 4]
+                >= thr).sum())
+    img = cv2.imread(str(out_file))
+    if not (res["poses"] == want > 0 and img is not None
+            and img.shape == (720, 1280, 3)):
+        raise AssertionError(f"demo: {res}, inference_detector {want} "
+                             f"poses, image {None if img is None else img.shape}")
+    print(f"demo: pavenet_tpu_torch.demo.image_demo on {DEMO_FRAMES} "
+          f"720x1280 frames from {Path(ckpt).name}: {res['poses']} poses "
+          f"(inference_detector {want}) -> {out_file.name}; launches "
+          f"{json.dumps(launches)}; {seconds:.2f} s with the model's build "
+          f"| {smi}", flush=True)
+    return launches
+
+
+def render_phase(smi, ckpt):
+    """Phase 35: ``--show --show-dir`` on phase 14's checkpoint and
+    scenes (keypoints) and on phase 26's SOIT checkpoint and instance
+    scenes (boxes, class names, masks); then the demo. Returns each run's
+    launches."""
+    runs = {"render_pose": render_run(
+        smi, "render_pose",
+        [str(ROOT / SYNTHETIC_CONFIG),
+         str(CHIP_WORK / f"step_{E2E_RESUMED_STEPS}.pt")] + e2e_options(),
+        CALLS_PER_CLIP, 0.0)}
+    soit = CHIP_WORK / "soit"
+    runs["render_soit"] = render_run(
+        smi, "render_soit", [str(soit / "soit_cli.py"),
+                             str(soit / "soit_cli" / "step_0.pt")],
+        SOIT_CALLS, 0.0)
+    runs["demo"] = demo_run(smi, ckpt)
+    return runs
+
+
 def kernel_record(name, records, launches, replaces, **extra):
     """The kernel's line: ``ms``, ``plain_ms``, ``library_ms`` and
     ``bound_ms`` of one main-path call (msda: the encoder call on
@@ -3556,6 +3817,15 @@ def main(argv=None):
     inspose_family(smi, runs, serve_ms, fwd, bwd)
     torch.cuda.empty_cache()
     lap("30-32")
+    # 33. get_flops on the flagship, PETR R50, SOIT R50 and InsPose R50
+    runs.update(flops_phase(smi))
+    # 34. the train CLI's --synthetic run with a profiler trace
+    runs["synthetic_profile"], synthetic_ckpt = synthetic_profile(smi)
+    torch.cuda.empty_cache()
+    # 35. --show-dir renders and the demo
+    runs.update(render_phase(smi, synthetic_ckpt))
+    torch.cuda.empty_cache()
+    lap("33-35")
     print("serve forward_test ms/clip, f32 / bf16: " + ", ".join(
         f"{m} {serve_ms[(m, 'f32')]:.2f} / "
         + (f"{serve_ms[(m, 'bf16')]:.2f}" if (m, "bf16") in serve_ms
@@ -3606,7 +3876,7 @@ def main(argv=None):
                 out.update({f"{k}_{suffix}": recs[0][k] for k in
                             ("ms", "plain_ms", "bound_ms", "bound_by")})
         return out
-    print(f"chip_smoke: phases 1-32 passed in "
+    print(f"chip_smoke: phases 1-35 passed in "
           f"{time.perf_counter() - t_start:.1f} s | {smi}", flush=True)
     print(json.dumps({"kernels": [
         kernel_record("msda_fwd", fwd,

@@ -103,6 +103,19 @@ def _param_label(name: str, frozen_stages: int = 1,
     return "base"
 
 
+def step_lr_schedule(base_lr: float, steps_per_epoch: int,
+                     decay_epochs=(10,),
+                     gamma: float = 0.1) -> Callable[[int], float]:
+    """mmcv StepLrUpdater: ``lr(t)``, ``base_lr`` times ``gamma`` for each
+    decay epoch whose first step ``t`` has reached."""
+    boundaries = {int(e * steps_per_epoch) for e in decay_epochs}
+
+    def schedule(t):
+        return base_lr * gamma ** sum(t >= b for b in boundaries)
+
+    return schedule
+
+
 def build_lr_schedule(lr_config: Mapping, base_lr: float,
                       steps_per_epoch: int,
                       max_epochs: int = 20) -> Callable[[int], float]:
@@ -118,10 +131,7 @@ def build_lr_schedule(lr_config: Mapping, base_lr: float,
         step = lr_config.get("step", [10])
         if isinstance(step, int):
             step = [step]
-        boundaries = {int(e * steps_per_epoch) for e in step}
-
-        def main(t):
-            return base_lr * gamma ** sum(t >= b for b in boundaries)
+        main = step_lr_schedule(base_lr, steps_per_epoch, step, gamma)
     elif policy in ("cosine", "CosineAnnealing"):
         min_lr = lr_config.get("min_lr")
         if min_lr is None:

@@ -3,7 +3,9 @@
 
 A config is a python file whose top-level variables form a dict; ``_base_``
 lists parent files that are deep-merged (child wins) and ``_delete_=True``
-inside a dict drops the inherited value. ``Config.merge_from_dict`` applies
+inside a dict drops the inherited value; ``Config.fromstring`` reads the
+text of such a file, ``pretty_text`` and ``dump`` write one (``key =
+value`` lines through ``pformat_value``). ``Config.merge_from_dict`` applies
 ``a.b.c=value`` overrides (the CLIs' ``--cfg-options``, parsed by
 ``DictAction``); ``replace_cfg_vals`` substitutes ``${key}`` strings and
 ``update_data_root`` moves dataset paths under ``MMDET_DATASETS``.
@@ -17,6 +19,7 @@ import importlib.util
 import os
 import re
 import sys
+import tempfile
 import types
 from typing import Any, Dict, List, Optional
 
@@ -37,6 +40,11 @@ class ConfigDict(dict):
 
     def __setattr__(self, name, value):
         self[name] = value
+
+    def __deepcopy__(self, memo):
+        return type(self)(
+            {copy.deepcopy(k, memo): copy.deepcopy(v, memo)
+             for k, v in self.items()})
 
 
 def _to_config_dict(obj):
@@ -116,6 +124,42 @@ class Config(ConfigDict):
     def fromfile(filename: str) -> "Config":
         return Config(_to_config_dict(_file2dict(filename)))
 
+    @staticmethod
+    def fromstring(cfg_str: str) -> "Config":
+        """The config of a file's text (``_base_`` paths absolute)."""
+        with tempfile.NamedTemporaryFile("w", suffix=".py",
+                                         delete=False) as f:
+            f.write(cfg_str)
+            path = f.name
+        try:
+            return Config.fromfile(path)
+        finally:
+            os.unlink(path)
+
+    def to_dict(self) -> dict:
+        """The config as plain dicts, lists and tuples."""
+        def _plain(o):
+            if isinstance(o, dict):
+                return {k: _plain(v) for k, v in o.items()}
+            if isinstance(o, (list, tuple)):
+                return type(o)(_plain(v) for v in o)
+            return o
+        return _plain(dict(self))
+
+    @property
+    def pretty_text(self) -> str:
+        return pformat_value(self.to_dict())
+
+    def dump(self, file: Optional[str] = None):
+        """The config as ``key = value`` lines: returned, or written to
+        ``file``."""
+        text = "\n".join(f"{k} = {pformat_value(v)}"
+                         for k, v in self.to_dict().items())
+        if file is None:
+            return text
+        with open(file, "w") as f:
+            f.write(text + "\n")
+
     def merge_from_dict(self, options: Dict[str, Any]):
         """Apply ``{'a.b.c': v}``-style overrides in place; a digit key
         indexes a list."""
@@ -130,6 +174,11 @@ class Config(ConfigDict):
                                  allow_list_keys=True)
         self.clear()
         self.update(_to_config_dict(merged))
+
+
+def pformat_value(v) -> str:
+    import pprint
+    return pprint.pformat(v, width=100, sort_dicts=False)
 
 
 class DictAction:

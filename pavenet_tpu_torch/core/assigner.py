@@ -8,9 +8,13 @@ device.
 
 GT layout (static shapes): ``gt_kpts (B, G, K, 3)`` unnormalised xyv,
 ``gt_areas (B, G)``, ``gt_valid (B, G)`` bool; padded rows are invalid.
+
+The JAX package's per-image forms are here too: ``pose_hungarian_assign``
+(one image's ``AssignResult``) and the RLE matching cost ``rle_cost``.
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import List, NamedTuple, Sequence
 
@@ -59,6 +63,37 @@ def oks_cost(kpt_pred_abs, gt_kpts_abs, vis, areas, sigmas, weight=7.0):
     return -oks * weight
 
 
+def rle_cost(kpt_pred, sigma_pred, gt_kpts_norm, vis, log_prob_fn,
+             weight: float = 1.0):
+    """RLE matching cost of one image (the reference's experimental
+    ``RLECost``): per (query, gt) the RLE loss summed over the visible
+    joints, divided by the joint count, then by ``2 * num_vis``.
+
+    kpt_pred (Q, K, 2); sigma_pred (Q, K, 2); gt_kpts_norm (G, K, 2); vis
+    (G, K); ``log_prob_fn`` a flow's log-prob over (N, 2) (RealNVP's
+    ``log_prob``), taken without gradient. Returns (Q, G)."""
+    Q, K = kpt_pred.shape[:2]
+    G = gt_kpts_norm.shape[0]
+    amp = 1.0 / math.sqrt(2 * math.pi)
+    sigma = sigma_pred.clamp(min=1e-9)[:, None]               # (Q, 1, K, 2)
+    diff = kpt_pred[:, None] - gt_kpts_norm[None]             # (Q, G, K, 2)
+    with torch.no_grad():
+        log_phi = log_prob_fn((diff / sigma).reshape(-1, 2)).reshape(
+            Q, G, K, 1)
+    v = (vis > 0).to(kpt_pred.dtype)[None, :, :, None]        # (1, G, K, 1)
+    nf = (torch.log(sigma) - log_phi) * v
+    q = (torch.log(sigma / amp)
+         + diff.abs() / (math.sqrt(2) * sigma + 1e-9)) * v
+    cost = (nf + q).sum((2, 3)) / K                           # (Q, G)
+    return cost / (v.sum((0, 2, 3)) * 2.0).clamp(min=1.0) * weight
+
+
+class AssignResult(NamedTuple):
+    """One image's one-to-one matching over padded GT slots."""
+    query_idx: torch.Tensor   # (G,) int64, matched query per gt (-1 invalid)
+    valid: torch.Tensor       # (G,) bool
+
+
 def pose_match_cost(cls_logits, kpt_pred, gt_kpts, gt_areas, img_shape,
                     sigmas, cls_weight=2.0, kpt_weight=70.0,
                     oks_weight=7.0):
@@ -99,6 +134,22 @@ def hungarian_assign(costs: Sequence[torch.Tensor],
 
 
 hungarian_assign.seconds = 0.0
+
+
+def pose_hungarian_assign(cls_logits, kpt_pred, gt_kpts, gt_areas, gt_valid,
+                          img_shape, num_keypoints=15, cls_weight=2.0,
+                          kpt_weight=70.0, oks_weight=7.0) -> AssignResult:
+    """One image's assignment (``hungarian_assign`` of the batch of one):
+    cls_logits (Q, 1), kpt_pred (Q, K, 2) normalised, gt_kpts (G, K, 3)
+    unnormalised, gt_areas (G,), gt_valid (G,), img_shape (2,) = (h, w)."""
+    from ..models.losses.oks_loss import OKS_SIGMAS
+    sigmas = torch.as_tensor(OKS_SIGMAS[num_keypoints],
+                             device=kpt_pred.device)
+    cost = pose_match_cost(cls_logits[None], kpt_pred[None], gt_kpts[None],
+                           gt_areas[None], img_shape[None], sigmas,
+                           cls_weight, kpt_weight, oks_weight)
+    (query_idx,) = hungarian_assign([cost], gt_valid[None])
+    return AssignResult(query_idx=query_idx[0], valid=gt_valid)
 
 
 class PoseTargets(NamedTuple):

@@ -13,9 +13,9 @@ in ``VideoPoseDetector``. Dropout follows ``nn.Module.training``.
 
 The per-instance masks run batched: the instances of an image fold into
 the query axis of one msda call over the image's mask feature, which they
-share. That call is the plain version (``ms_deform_attn_torch``), as the
-JAX package's ``impl='xla'`` there; every other msda call takes the
-model's ``impl``.
+share. That call is the plain version (``impl='torch'``), as the JAX
+package's ``impl='xla'`` there; every other msda call takes the model's
+``impl``.
 
 Over ``torch.distributed`` ranks the box and mask losses divide by the
 global batch's valid GT count (``parallel/dist.py::global_sum``).
@@ -51,7 +51,7 @@ from ..layers.transformer import FFN, MLP, MultiheadAttention
 from ..losses import sigmoid_focal_loss
 from ..necks.channel_mapper import ChannelMapper
 from ...core.assigner import hungarian_assign
-from ...ops.ms_deform_attn import ms_deform_attn_torch
+from ...ops.ms_deform_attn import ms_deform_attn
 from ...parallel.dist import global_sum
 from .videopose import VideoPoseDetector, jax_like_init_
 
@@ -188,8 +188,8 @@ def dynamic_mask_attention(params, mask_feat, pos_embed, token_refs,
     refs = token_refs[:, None].expand(B, M, n0, 1, 2).reshape(B, M * n0, 1,
                                                                2)
     locations = make_sampling_locations(refs, offsets, (spatial_shape,), P)
-    out = ms_deform_attn_torch(value, (spatial_shape,), locations,
-                               weights).view(B, M, n0, C)
+    out = ms_deform_attn(value, (spatial_shape,), locations, weights,
+                         impl="torch").view(B, M, n0, C)
     out = F.relu(out).to(dt)
     return (torch.einsum("bmnc,bmc->bmn", out, part("out_w", C))
             + part("out_b", 1))

@@ -22,7 +22,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _ext
+from . import _ext, flops
 
 Shapes = Tuple[Tuple[int, int], ...]
 # the JAX package's names for the same two routes: its XLA gather, and its
@@ -112,15 +112,18 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence,
     raises; it never falls back. ``ms_deform_attn.launches`` and
     ``ms_deform_attn.backward_launches`` count the kernel launches,
     ``.bf16_launches`` and ``.bf16_backward_launches`` those of them that
-    took a bfloat16 value.
+    took a bfloat16 value. Inside ``flops.kernel_flops()`` every call adds
+    its operations to the tally.
     """
     if impl == "auto":
         impl = "cuda" if value.is_cuda else "torch"
     if impl not in IMPLS:
         raise ValueError(f"unknown msda impl {impl!r}")
+    flops.record_msda(value, sampling_locations)
     if IMPLS[impl] == "torch":
-        return ms_deform_attn_torch(value, spatial_shapes, sampling_locations,
-                                    attention_weights)
+        with flops.outside_counter():
+            return ms_deform_attn_torch(value, spatial_shapes,
+                                        sampling_locations, attention_weights)
     if not value.is_cuda:
         raise ValueError(f"impl={impl!r} needs CUDA tensors; got "
                          f"{value.device}")

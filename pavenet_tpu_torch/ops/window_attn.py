@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _ext
+from . import _ext, flops
 
 NEG = -1e9
 # the JAX package's names for the same two routes
@@ -108,7 +108,8 @@ def window_attention_levels(qs, ks, vs, keeps, num_heads: int, wh: int = 8,
     backward launch for all levels) or raises; it never falls back.
     ``window_attention_levels.launches`` and ``.backward_launches`` count
     the kernel launches, ``.bf16_launches`` and ``.bf16_backward_launches``
-    those of them that took bfloat16 rasters.
+    those of them that took bfloat16 rasters. Inside
+    ``flops.kernel_flops()`` every call adds its operations to the tally.
     """
     if not len(qs) == len(ks) == len(vs) == len(keeps) > 0:
         raise ValueError(f"level lists of lengths {len(qs)}, {len(ks)}, "
@@ -117,9 +118,11 @@ def window_attention_levels(qs, ks, vs, keeps, num_heads: int, wh: int = 8,
         impl = "cuda" if qs[0].is_cuda else "torch"
     if impl not in IMPLS:
         raise ValueError(f"unknown window attention impl {impl!r}")
+    flops.record_window(qs, (wh, ww))
     if IMPLS[impl] == "torch":
-        return [window_attention_torch(q, k, v, keep, num_heads, wh, ww)
-                for q, k, v, keep in zip(qs, ks, vs, keeps)]
+        with flops.outside_counter():
+            return [window_attention_torch(q, k, v, keep, num_heads, wh, ww)
+                    for q, k, v, keep in zip(qs, ks, vs, keeps)]
     if not all(t.is_cuda for t in (*qs, *ks, *vs, *keeps)):
         raise ValueError(f"impl={impl!r} needs CUDA tensors; got "
                          f"{qs[0].device}")

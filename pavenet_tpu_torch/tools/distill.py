@@ -40,7 +40,7 @@ from pavenet_tpu_torch.tools.train import add_dist_args
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="Distil a windowed encoder from a deformable teacher",
-        epilog="Not ported: --prebaked, --compile-cache.")
+        epilog="Left out (TPU-only): --prebaked, --compile-cache.")
     p.add_argument("config", help="windowed-encoder config (the student)")
     p.add_argument("teacher_checkpoint")
     p.add_argument("--work-dir", default=None)

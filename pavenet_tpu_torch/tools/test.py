@@ -5,6 +5,7 @@ InsPose).
     python -m pavenet_tpu_torch.tools.test <config.py> <checkpoint>
         [--eval keypoints] [--out dets.json] [--format-only]
         [--flip-test] [--aug-scales 1.0 0.75 ...]
+        [--show] [--show-dir DIR] [--show-score-thr S] [--show-wait MS]
         [--dtype f32|bf16] [--device cuda|cpu] [--dist-backend nccl|gloo]
         [--cfg-options k=v ...]
 
@@ -35,14 +36,22 @@ VOC mAP); InsPose's detections are boxes (its keypoints' extent and
 soft-NMS score), evaluated as box AP, as the JAX CLI evaluates them;
 ``--flip-test`` and ``--aug-scales`` are for keypoint models.
 
-Not here: ``--show``, ``--show-dir``, ``--show-score-thr``,
-``--show-wait``, ``--compile-cache``.
+``--show-dir`` draws each test image's detections onto its source image
+(``utils/visualize.py::render_detections``: skeletons, or boxes with their
+class names and masks) and writes it under the image's path relative to
+the dataset's ``img_prefix``;
+``--show`` shows them in a window, and without a ``DISPLAY`` warns and
+goes on. Rank 0 renders, after the gather, from the detections as they
+come, masks included (``--out`` drops them).
+
+Left out, as the JAX CLI's TPU-only option: ``--compile-cache``.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import time
 
 from pavenet_tpu_torch.tools.train import add_dist_args
 
@@ -50,8 +59,7 @@ from pavenet_tpu_torch.tools.train import add_dist_args
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="Test a pose or detection model",
-        epilog="Not ported: --show, --show-dir, --show-score-thr, "
-               "--show-wait, --compile-cache.")
+        epilog="Left out (TPU-only): --compile-cache.")
     p.add_argument("config")
     p.add_argument("checkpoint")
     p.add_argument("--eval", default="keypoints", choices=["keypoints"],
@@ -66,6 +74,16 @@ def parse_args(argv=None):
     p.add_argument("--out", default=None, help="dump detections json")
     p.add_argument("--format-only", action="store_true",
                    help="dump --out without evaluating")
+    p.add_argument("--show", action="store_true",
+                   help="show the rendered detections in a window (needs a "
+                        "DISPLAY; without one it warns and goes on)")
+    p.add_argument("--show-dir", default=None,
+                   help="write the detections drawn onto the source images "
+                        "here")
+    p.add_argument("--show-score-thr", type=float, default=0.3,
+                   help="score threshold of --show and --show-dir")
+    p.add_argument("--show-wait", type=int, default=0,
+                   help="--show's wait per image in ms (0: until a key)")
     p.add_argument("--dtype", default="auto", choices=["auto", "f32", "bf16"],
                    help="activation dtype ('auto' follows the config's "
                         "act_dtype)")
@@ -75,6 +93,59 @@ def parse_args(argv=None):
     add_dist_args(p)
     p.add_argument("--cfg-options", nargs="+", default=[])
     return p.parse_args(argv)
+
+
+def show_results(dataset, detections, show_dir, score_thr, logger,
+                 show=False, wait=0) -> int:
+    """Render each image's detections (``--show-dir``, ``--show``):
+    grouped by ``image_id``, the source image from ``dataset.img_prefix``
+    and ``data_infos``, the class names from ``dataset.CLASSES``, written
+    under ``show_dir`` at the image's path relative to ``img_prefix`` (the
+    reference's ``ori_filename``: video frames share base names); a
+    missing image is warned about and skipped. Returns the images
+    rendered."""
+    from pavenet_tpu_torch.utils.visualize import render_detections
+    if show_dir:
+        os.makedirs(show_dir, exist_ok=True)
+    if show and not os.environ.get("DISPLAY"):
+        logger.warning("--show: no DISPLAY available (headless): skipping "
+                       "the window; use --show-dir")
+        show = False
+    by_img = {}
+    for d in detections:
+        by_img.setdefault(d["image_id"], []).append(d)
+    infos = {info["id"]: info for info in dataset.data_infos}
+    class_names = getattr(dataset, "CLASSES", None)
+    n = 0
+    for img_id, dets in by_img.items():
+        info = infos.get(img_id)
+        if info is None:
+            continue
+        src = os.path.join(dataset.img_prefix, info["file_name"])
+        out_file = None
+        if show_dir:
+            out_file = os.path.join(show_dir, info["file_name"])
+            os.makedirs(os.path.dirname(out_file), exist_ok=True)
+        try:
+            rendered = render_detections(
+                src, dets, score_thr=score_thr, out_file=out_file,
+                class_names=class_names)
+            n += 1
+        except FileNotFoundError:
+            logger.warning(f"show: missing source image {src}")
+            continue
+        if show:
+            import cv2
+            cv2.imshow("pavenet", rendered)
+            if cv2.waitKey(wait) & 0xFF in (27, ord("q")):
+                show = False
+                cv2.destroyAllWindows()
+    if show:
+        import cv2
+        cv2.destroyAllWindows()
+    if show_dir:
+        logger.info(f"rendered {n} images to {show_dir}")
+    return n
 
 
 def main(argv=None) -> dict:
@@ -156,6 +227,12 @@ def _test(args, cfg, device) -> dict:
         with open(args.out, "w") as f:
             json.dump(dump, f)
         logger.info(f"wrote {len(detections)} detections to {args.out}")
+    if args.show_dir or args.show:
+        t0 = time.perf_counter()
+        timing["rendered"] = show_results(
+            dataset, detections, args.show_dir, args.show_score_thr, logger,
+            show=args.show, wait=args.show_wait)
+        timing["render_s"] = time.perf_counter() - t0
     metrics = None
     if not args.format_only:
         metrics = evaluate_dataset(dataset, detections)
