@@ -15,7 +15,7 @@ kernels) serving, training, from a ``.pth`` and through the test CLI;
 the test CLI's ``--show-dir`` renders and the demo.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # only phases 1-3 and the comparison
+    python3 chip_smoke.py --parent DIR   # phases 1-3 and the comparisons
 
 Phases (one printed line each or more; any failure raises and exits
 non-zero):
@@ -29,8 +29,11 @@ non-zero):
    on the plain path, and the encoder call of one T=5 clip (its five
    frames folded into the batch). With ``--parent DIR`` (a checkout of an
    earlier commit) the run then times that commit's msda kernels against
-   this tree's on the encoder call, in-model and uniform-random, and
-   stops.
+   this tree's in turns on the encoder call, in-model and uniform-random,
+   and on the dynamic mask calls of SOIT (serve and train) and DK-DETR
+   (serve) where that commit takes head size 2, f32 and bf16; then SOIT
+   serving, f32 and bf16, of that commit against this tree, each in a
+   process of its own, in turns; and stops.
 4. msda forward kernel against its plain PyTorch version at the main-path
    shapes (encoder, pose decoder, serving joint decoder Q=300, train joint
    decoder Q=450) on uniform-random inputs, plus edge levels (1-row,
@@ -164,34 +167,40 @@ non-zero):
 24. SOIT R50 (``configs/soit/soit_r50_16x2_50e_coco.py``: 80 classes, 300
    queries, 6/6 layers, 100 detections): ``init_detector`` and
    ``inference_detector`` on 3 synthetic 720x1280 images (800x1344
-   bucket), f32 and bf16: exactly 13 msda launches per image (6 encoder,
-   the one-head seg encoder, 6 box-reference decoder layers; the dynamic
-   mask calls run the plain version, as JAX's ``impl='xla'``, and launch
-   nothing), peak memory, the dynamic-mask call's time and bound; cuda
-   against torch (TF32 off) on the plain path's proposals and detections:
-   boxes within 1e-2 px, scores 1e-4, mask probabilities 1e-3, labels
-   equal, the kernels' own proposals a tie at most; bf16 stage by stage
-   within ``BF16_STAGE_TOL``. The msda kernels against the plain version
-   on the captured in-model calls: the seg encoder (B=1 serving, B=2 in
-   train mode) and the first and last decoder layers, forward and
-   backward, f32 and bf16, with the share of sampling locations outside
-   [0, 1]. Train: ``init_trainer``, 8 mini-steps (one update) at 800x1344,
-   B=2 (the config's), 30 GT slots with seeded boxes, labels and box masks:
-   13+13 launches each, ms per step, peak memory; one mini-step cuda
+   bucket), f32 and bf16: exactly 14 msda launches per image (6 encoder,
+   the one-head seg encoder, 6 box-reference decoder layers and the
+   dynamic mask call, 4 heads of 2 channels over level 0 with the 100
+   instances on its query axis; in bf16 all 14 on bf16 values), peak
+   memory; cuda against torch (TF32 off) on the plain path's proposals
+   and detections: boxes within 1e-2 px, scores 1e-4, mask probabilities
+   1e-3, labels equal, the kernels' own proposals a tie at most; bf16
+   stage by stage within ``BF16_STAGE_TOL``. The msda kernels against the
+   plain version on the captured in-model calls: the seg encoder (B=1
+   serving, B=2 in train mode), the first and last decoder layers and the
+   dynamic mask call (serving M=100, and a train forward at B=2, M=30 GT
+   slots, each captured from the model on the kernels, which must have
+   launched the kernel for it), forward and backward, f32 and bf16, with
+   the share of sampling locations outside [0, 1] and the bound; then the
+   mask calls' plan against the same call with its level staged in every
+   block and with nothing staged, both directions. Train: ``init_trainer``,
+   8 mini-steps (one update) at 800x1344, B=2 (the config's), 30 GT slots
+   with seeded boxes, labels and box masks: 14+14 launches each, ms per
+   step, peak memory; one mini-step cuda
    against torch on the plain path's proposals: the same matches in all 7
    sets, every loss (``loss_mask_dice``, ``loss_mask_bce``, ``enc_loss_*``)
    within 1e-4, the gradient norm within 1e-3.
 25. DK-DETR R50 LVIS (``configs/dk-detr/dkd_r50_70e_lvis.py``: 1203 classes,
    seeded (1203, 512) text embeddings read from a ``.npy`` by
    ``PseudoTextEncoder``, temperature 0.05, trainable BatchNorm, 300
-   detections): phase 24 in f32, at its B=1; every trainable BatchNorm's
-   running statistics move, and match the plain path's within 1e-5.
+   detections): phase 24 in f32, at its B=1 (the mask call at M=300,
+   serving only); every trainable BatchNorm's running statistics move, and
+   match the plain path's within 1e-5.
 26. The test CLI on instance scenes (3 categories, polygon masks) at
    448x768 and a VOC2007 tree of them: seed-0 checkpoints of SOIT, of
    ``dkd_r50_70e_test_coco.py`` with 80 text rows and of
    ``dkd_r50_70e_test_voc.py`` with 20 (fewer than the model's 1203
    classes: every label within the rows) through ``tools.test.main``,
-   every detection kept: 13 launches per image, bbox and segm AP or VOC
+   every detection kept: 14 launches per image, bbox and segm AP or VOC
    mAP, ms per image.
 
 27. data parallelism on the one card: two ranks (``chip_smoke.py
@@ -222,7 +231,7 @@ non-zero):
    equal to the source's bit for bit (PETR's sigma branches, absent from
    its reference tree, the model's init), and ``forward_test`` on a
    synthetic clip equal to the model built from that state dict, 11 (SOIT
-   13) launches.
+   14) launches.
 
 30. InsPose R50 (``configs/inspose/inspose_r50_8x4_3x_coco.py``: FPN, 256-
    and 512-wide towers, star deformable convolutions, dynamic keypoint
@@ -249,7 +258,7 @@ non-zero):
 33. ``tools.get_flops.main`` on the card at 800x1344: the flagship (its
    parameter count equal to the model's built on the card, positive FLOPs,
    the msda line from exactly 11 forward launches), then PETR R50 (11),
-   SOIT R50 (13) and InsPose R50 (10) with their counts.
+   SOIT R50 (14) and InsPose R50 (10) with their counts.
 34. ``tools.train.main --synthetic --max-steps 5 --profile-dir DIR
    --no-validate`` on the flagship (256x448 clips): 11+11 launches per
    mini-step, finite losses; the Chrome trace is valid JSON, holds exactly
@@ -346,18 +355,20 @@ COCO_STEPS = 4
 # scales) and the distillation CLI's steps
 TTA_RUNS = (("flip", True, None), ("flip_scales", True, (1.0, 0.75)))
 E2E_DISTILL_STEPS = 4
-# phases 24-26: SOIT R50 and DK-DETR R50 LVIS (13 msda calls per image:
+# phases 24-26: SOIT R50 and DK-DETR R50 LVIS (14 msda calls per image:
 # 6 encoder layers, the one-head seg encoder over level 0, 6 box-refining
-# decoder layers; the per-instance mask attention runs the plain version,
-# as the JAX package's impl='xla'), their test configs through the test
-# CLI on instance scenes with 3 categories and a VOC2007 tree
+# decoder layers, whose 13 go through the attention modules, and the
+# dynamic mask call, the instances on its query axis), their test configs
+# through the test CLI on instance scenes with 3 categories and a VOC2007
+# tree
 SOIT_CONFIG = "configs/soit/soit_r50_16x2_50e_coco.py"
 DKDETR_CONFIG = "configs/dk-detr/dkd_r50_70e_lvis.py"
 DKDETR_TEST_CONFIGS = (("coco", "configs/dk-detr/dkd_r50_70e_test_coco.py",
                         80),
                        ("voc", "configs/dk-detr/dkd_r50_70e_test_voc.py",
                         20))
-SOIT_CALLS = 13
+SOIT_LAYER_CALLS = 13
+SOIT_CALLS = SOIT_LAYER_CALLS + 1
 DET_DATA = CHIP_DATA / "instances"
 DET_CATEGORIES = 3
 # cuda vs torch on SOIT serving: boxes (px), scores, mask probabilities
@@ -411,13 +422,12 @@ INSPOSE_CAPTURE = ("inspose_l0_cls_star", "inspose_l4_cls_star")
 # to their largest), keypoints (px) and soft-NMS scores
 INSPOSE_TOL = dict(stages=1e-4, kpts=1e-2, scores=1e-4)
 # phase 33: get_flops on the flagship (11 msda launches), then PETR R50
-# (11), SOIT R50 (13, and its dynamic-mask call on the plain version, which
-# the msda line counts too) and InsPose R50 (10), each at the 800x1344 eval
-# bucket: name, config, launches, msda calls counted
-FLOPS_RUNS = (("flagship", CONFIG, CALLS_PER_CLIP, CALLS_PER_CLIP),
-              ("petr", PETR_CONFIG, CALLS_PER_CLIP, CALLS_PER_CLIP),
-              ("soit", SOIT_CONFIG, SOIT_CALLS, SOIT_CALLS + 1),
-              ("inspose", INSPOSE_CONFIG, INSPOSE_CALLS, INSPOSE_CALLS))
+# (11), SOIT R50 (14) and InsPose R50 (10), each at the 800x1344 eval
+# bucket: name, config, launches (each call counted once on the msda line)
+FLOPS_RUNS = (("flagship", CONFIG, CALLS_PER_CLIP),
+              ("petr", PETR_CONFIG, CALLS_PER_CLIP),
+              ("soit", SOIT_CONFIG, SOIT_CALLS),
+              ("inspose", INSPOSE_CONFIG, INSPOSE_CALLS))
 # phase 34: the train CLI's --synthetic run, mini-steps 3-4 traced
 SYNTHETIC_PROFILE_STEPS = 5
 PROFILED_STEPS = (3, 4)
@@ -783,12 +793,13 @@ def check_probes(ext, captured):
     return records
 
 
-def compare_parent(ext, parent, captured):
+def compare_parent(ext, parent, captured, masks):
     """An earlier commit's msda kernels (built from ``parent``'s own
-    ``csrc/`` by its own loader, whose wrappers take the level table as
-    (L, 2) shapes and (L,) level-start int32 tensors on the card) against
-    this tree's on the same encoder inputs, in turns: parent, this, this,
-    parent; wrappers called directly, f32. Returns records."""
+    ``csrc/`` by its own loader) against this tree's on the same inputs, in
+    turns: parent, this, this, parent; wrappers called directly. The
+    inputs: the encoder call in-model and uniform-random (f32), and the
+    dynamic mask calls ``masks`` in f32 and bf16 (g seeded) where the
+    parent's kernels take their head size. Returns records."""
     import importlib.util
     import torch
     spec = importlib.util.spec_from_file_location(
@@ -797,22 +808,28 @@ def compare_parent(ext, parent, captured):
     spec.loader.exec_module(old)
     for name, seconds in old.build_all(("msda_fwd", "msda_bwd")).items():
         print(f"build: parent csrc/{name}.cu in {seconds:.2f} s", flush=True)
+    cases = [(inputs, "float32", fwd_in, bwd_in, levels)
+             for inputs, (fwd_in, bwd_in, levels)
+             in probe_inputs(captured).items()]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for name, v, levels, loc, attn in masks:
+        B, _, H, D = v.shape
+        if D not in old.MSDA_HEAD_DIMS:
+            print(f"parent: no kernel for head size {D}, {name} not "
+                  "compared", flush=True)
+            continue
+        g = torch.randn(B, loc.shape[1], H * D, device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            vd = v.to(dtype)
+            cases.append((name, str(dtype).replace("torch.", ""),
+                          (vd, loc, attn), (vd, loc, attn, g), levels))
     records = []
-    for inputs, (fwd_in, bwd_in, levels) in probe_inputs(captured).items():
-        starts = [0]
-        for h, w in levels[:-1]:
-            starts.append(starts[-1] + h * w)
-        shapes = torch.tensor(levels, dtype=torch.int32, device="cuda")
-        level_start = torch.tensor(starts, dtype=torch.int32, device="cuda")
-        v, loc, attn = fwd_in
-        runs = {"fwd": (lambda: old.msda_fwd(v, shapes, level_start, loc,
-                                             attn),
-                        lambda: ext.msda_fwd(v, levels, loc, attn))}
-        bv, bloc, battn, g = bwd_in
-        runs["bwd"] = (lambda: old.msda_bwd(bv, shapes, level_start, bloc,
-                                            battn, g),
-                       lambda: ext.msda_bwd(bv, levels, bloc, battn, g))
-        rec = dict(inputs=inputs, dtype="float32")
+    for inputs, dtype, (v, loc, attn), (bv, bloc, battn, g), levels in cases:
+        runs = {"fwd": (lambda: old.msda_fwd(v, levels, loc, attn),
+                        lambda: ext.msda_fwd(v, levels, loc, attn)),
+                "bwd": (lambda: old.msda_bwd(bv, levels, bloc, battn, g),
+                        lambda: ext.msda_bwd(bv, levels, bloc, battn, g))}
+        rec = dict(inputs=inputs, dtype=dtype)
         for key, (parent_fn, this_fn) in runs.items():
             a, b = parent_fn(), this_fn()
             torch.cuda.synchronize()
@@ -820,7 +837,8 @@ def compare_parent(ext, parent, captured):
             # boundaries, where the two may round differently)
             pairs = [(a, b)] if key == "fwd" else [(a[0], b[0]), (a[2], b[2])]
             rec[f"{key}_max_abs_diff"] = max(
-                (x - y).abs().max().item() for x, y in pairs)
+                (x.float() - y.float()).abs().max().item() for x, y in pairs)
+            del a, b, pairs
             times = [cuda_ms(f) for f in (parent_fn, this_fn, this_fn,
                                           parent_fn)]
             rec[f"{key}_parent_ms"] = (times[0] + times[3]) / 2
@@ -829,6 +847,119 @@ def compare_parent(ext, parent, captured):
         print("parent", json.dumps(rec), flush=True)
         records.append(rec)
     return records
+
+
+def mask_calls():
+    """The dynamic mask calls of SOIT serving (M=100), SOIT training (B=2,
+    M=30) and DK-DETR serving (M=300), captured from f32 models on this
+    tree's kernels (random weights from seed 0) as ``check_captured``
+    takes them."""
+    import numpy as np
+    import torch
+    from pavenet_tpu_torch.apis import init_detector
+    from pavenet_tpu_torch.config import Config
+    img = synthetic_clips(frames=1)[1][0]
+    calls = []
+    for name, config, rows in (("soit", SOIT_CONFIG, 0),
+                               ("dkdetr", DKDETR_CONFIG, 1203)):
+        text_feats, _ = det_text_feats(rows)
+        model = init_detector(str(ROOT / config), device="cuda", seed=0)
+        batch = det_feed(img, text_feats)
+        calls.append(mask_call_capture(lambda: model.forward_test(batch),
+                                       f"{name}_mask"))
+        if name == "soit":
+            cfg = Config.fromfile(str(ROOT / config))
+            train_batch = {k: torch.as_tensor(v).cuda() for k, v in
+                           det_batch_fn(cfg.model.bbox_head.num_classes,
+                                        text_feats)(
+                               np.random.RandomState(2),
+                               cfg.data.samples_per_gpu, (800, 1344)).items()}
+            calls.append(mask_call_capture(
+                lambda: model.forward_train(train_batch),
+                f"{name}_train_mask"))
+        del model, batch
+        torch.cuda.empty_cache()
+    return calls
+
+
+def serve_turns(parent):
+    """SOIT R50 serving of ``parent`` against this tree, each in a process
+    of its own (``serve_worker``), in turns: parent, this, this, parent.
+    Prints and returns each turn's record."""
+    records = []
+    for root in (parent, ROOT, ROOT, parent):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-worker",
+             str(Path(root).resolve())], cwd=ROOT, capture_output=True,
+            text=True, timeout=DDP_TIMEOUT_S)
+        if proc.returncode:
+            raise AssertionError(f"serve worker on {root} exited "
+                                 f"{proc.returncode}:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-6000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec["tree"] = "this" if root == ROOT else "parent"
+        print("serve turn", json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
+
+
+def serve_worker(root):
+    """SOIT R50 serving from the checkout at ``root`` (``chip_smoke.py
+    --serve-worker ROOT``), f32 then bf16, as phase 24 serves it: a
+    warm-up image, then 3 rounds of ``CLIPS`` images end to end (CUDA
+    events over ``inference_detector``, host pipeline included),
+    ``forward_test`` (median of 5), and 3 more rounds split into
+    ``inference_detector``'s steps on the host clock: ``prep``
+    (``host_batch`` and the copy to the card), ``forward``
+    (``forward_test``, synchronised) and ``copy`` (the detections, masks
+    included, to host arrays); prints one JSON line."""
+    import torch
+    sys.path.insert(0, str(root))
+    from pavenet_tpu_torch.apis import inference_detector, init_detector
+    from pavenet_tpu_torch.apis.inference import host_batch
+    imgs = [clip[0] for clip in synthetic_clips(frames=1)]
+    rec = dict(root=str(root))
+    for dtype in ("f32", "bf16"):
+        model = init_detector(str(Path(root) / SOIT_CONFIG), device="cuda",
+                              seed=0, dtype=dtype)
+        inference_detector(model, imgs[0])
+        rounds = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for img in imgs[1:]:
+                inference_detector(model, img)
+            end.record()
+            torch.cuda.synchronize()
+            rounds.append(start.elapsed_time(end) / CLIPS)
+        steps = {"prep": [], "forward": [], "copy": []}
+        for img in imgs[1:] * 3:
+            t0 = time.perf_counter()
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in host_batch(img, 1, (1333, 800)).items()}
+            batch["img"] = batch["img"][:, 0]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                out = model.forward_test(batch)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out = {k: v[0].cpu().numpy() for k, v in out.items()}
+            t3 = time.perf_counter()
+            for key, a, b in (("prep", t0, t1), ("forward", t1, t2),
+                              ("copy", t2, t3)):
+                steps[key].append((b - a) * 1e3)
+        rec[f"{dtype}_mask_bytes"] = out["det_masks"].nbytes
+        batch = det_feed(imgs[1], None)
+        with torch.inference_mode():
+            rec[f"{dtype}_forward_test_ms"] = cuda_ms(
+                lambda: model.forward_test(batch), reps=5, warmup=1)
+        rec[f"{dtype}_end_to_end_ms"] = rounds
+        rec[f"{dtype}_steps_ms"] = steps
+        del model, batch, out
+        torch.cuda.empty_cache()
+    print(json.dumps(rec), flush=True)
 
 
 def window_cases():
@@ -2228,7 +2359,7 @@ def capture_det_calls(model, batch, prefix, keep, train=False):
                                   text_feats=batch.get("text_feats"))
     finally:
         deformable.ms_deform_attn = dispatch
-    if len(calls) != SOIT_CALLS:
+    if len(calls) != SOIT_LAYER_CALLS:
         raise AssertionError(f"{len(calls)} msda calls in one forward")
     return captured
 
@@ -2262,39 +2393,98 @@ def check_captured(captured, fwd, bwd, backward=True):
                                        ms_deform_attn_torch))
 
 
-def mask_call_record(model, batch, name):
-    """The dynamic-mask msda call of one ``forward_test`` (the plain
-    version, JAX's ``impl='xla'``): its shape, time (CUDA events) and
-    bound."""
+def mask_call_capture(run, name):
+    """The dynamic-mask msda call of one ``run()`` (a ``forward_test`` or
+    ``forward_train`` of a model on the kernels, under ``no_grad``), seen
+    at the detector module's own binding of ``ms_deform_attn``: it must
+    have launched the forward kernel once (the kernel route, not the plain
+    version). Returns ``(name, value, levels, loc, attn)``, as
+    ``check_captured`` takes it."""
     import torch
     from pavenet_tpu_torch.models.detectors import soit
-    from pavenet_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
-    # the mask call is the detector module's only msda call of its own
+    from pavenet_tpu_torch.ops.ms_deform_attn import ms_deform_attn
     calls, wrapper = [], soit.ms_deform_attn
 
     def record(value, shapes, loc, attn, impl="auto"):
-        calls.append((value, shapes, loc, attn, impl))
-        return wrapper(value, shapes, loc, attn, impl=impl)
+        before = ms_deform_attn.launches
+        out = wrapper(value, shapes, loc, attn, impl=impl)
+        calls.append((value.detach(), tuple(map(tuple, shapes)),
+                      loc.detach().float(), attn.detach().float(), impl,
+                      ms_deform_attn.launches - before))
+        return out
 
     soit.ms_deform_attn = record
     try:
-        model.forward_test(batch)
+        with torch.no_grad():
+            run()
     finally:
         soit.ms_deform_attn = wrapper
-    (v, levels, loc, attn, impl), = calls
-    if impl != "torch":
-        raise AssertionError(f"{name}: the mask call took impl={impl!r}")
-    plain = ms_deform_attn_torch
-    bound_ms, bound_by = msda_bound(False, v, levels, loc)
+    (v, levels, loc, attn, impl, launched), = calls
+    if launched != 1:
+        raise AssertionError(f"{name}: the mask call (impl={impl!r}) "
+                             f"launched {launched} msda kernels, not 1")
     B, _, H, D = v.shape
-    rec = dict(case=name, B=B, Q=loc.shape[1], H=H, L=loc.shape[3],
-               P=loc.shape[4], D=D, instances=loc.shape[1] // v.shape[1],
-               plain_ms=cuda_ms(lambda: plain(v, levels, loc, attn)),
-               bound_ms=bound_ms, bound_by=bound_by)
-    print("mask call", json.dumps(rec), flush=True)
-    del calls
-    torch.cuda.empty_cache()
-    return rec
+    shape = (B, loc.shape[1], H, loc.shape[3], loc.shape[4], D)
+    print(f"mask call {name}: (B, Q, H, L, P, D) = {shape}, "
+          f"{loc.shape[1] // v.shape[1]} instances, {v.dtype}, on the "
+          "kernel", flush=True)
+    return name, v, levels, loc, attn
+
+
+def mask_plan_probe(captured):
+    """The dynamic mask calls' plans against the two other partitions of
+    their one level, f32 and bf16, each direction through the kernels' C
+    entries: the wrapper's plan, the level staged in every block (the
+    chunk kept) and nothing staged (``smem_bytes=0``). At D=2 a whole
+    head's level is 134 KB of f32 rows, and the plan stages it only where
+    a block's taps outnumber its rows. Returns records."""
+    import torch
+    from pavenet_tpu_torch.ops import _ext
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def timed(fn, *args):
+        def run():
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+        return cuda_ms(run)
+
+    records = []
+    for name, v0, levels, loc, attn in captured:
+        B, _, H, D = v0.shape
+        g = torch.randn(B, loc.shape[1], H * D, device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            v = v0.to(dtype)
+            out = torch.empty(B, loc.shape[1], H * D, dtype=dtype,
+                              device="cuda")
+            grads = [torch.zeros(v.shape, device="cuda"),
+                     torch.empty_like(loc), torch.empty_like(attn)]
+            rec = dict(case=name, dtype=str(dtype).replace("torch.", ""))
+            for key, tensors in (("fwd", (v, loc, attn, out)),
+                                 ("bwd", (v, loc, attn, g, *grads))):
+                entry = f"msda_{key}"
+                backward = key == "bwd"
+                fn = getattr(_ext._load(entry), entry)
+                ptrs = [t.data_ptr() for t in tensors]
+                planned = _ext.msda_args(entry, v, levels, loc, attn,
+                                         backward=backward)
+                bare = _ext.msda_args(entry, v, levels, loc, attn,
+                                      backward=backward, smem_bytes=0)
+                rec[f"{key}_plan_staged"] = planned[0][2] >= 0
+                rec[f"{key}_chunk"], rec[f"{key}_threads"] = planned[-2:]
+                rec[f"{key}_planned_ms"] = timed(fn, *ptrs, *planned)
+                every = _ext.msda_partition(levels, planned[-2],
+                                            range(len(levels)), D, dtype,
+                                            backward)
+                rec[f"{key}_staged_ms"] = timed(fn, *ptrs, *_ext.msda_args(
+                    entry, v, levels, loc, attn, backward=backward,
+                    plan=every))
+                rec[f"{key}_unstaged_ms"] = timed(fn, *ptrs, *bare)
+            print("mask plan", json.dumps(rec), flush=True)
+            records.append(rec)
+            del v, out, grads
+        torch.cuda.empty_cache()
+    return records
 
 
 def check_det_output(out, M, rows, hw=(400, 672)):
@@ -2315,12 +2505,16 @@ def check_det_output(out, M, rows, hw=(400, 672)):
                              f"in [{m.min()}, {m.max()}]")
 
 
-def det_serve(smi, config, dtype="f32", text_rows=0):
+def det_serve(smi, name, config, dtype="f32", text_rows=0,
+              train_batch=None):
     """SOIT or DK-DETR serving: ``init_detector`` and
     ``inference_detector`` on ``CLIPS`` synthetic 720x1280 images (800x1344
-    bucket), 13 msda launches each, then cuda against torch with TF32 off.
-    Returns the launches, ``forward_test`` ms, the dynamic-mask call's
-    record and a plain model with the batch (for the captures)."""
+    bucket), 14 msda launches each, then cuda against torch with TF32 off.
+    Returns the launches, ``forward_test`` ms, the dynamic mask calls
+    captured from the model on the kernels (``forward_test``'s, named
+    ``<name>_mask``, and with ``train_batch`` a ``forward_train``'s,
+    ``<name>_train_mask``; none in bf16, whose route is checked alone) and
+    a plain model with the batch (for the captures)."""
     import torch
     from pavenet_tpu_torch.apis import inference_detector, init_detector
 
@@ -2353,7 +2547,15 @@ def det_serve(smi, config, dtype="f32", text_rows=0):
     with torch.inference_mode():
         model_ms = cuda_ms(lambda: model.forward_test(batch), reps=5,
                            warmup=1)
-        mask = mask_call_record(model, batch, f"{config} {dtype}")
+    # outside inference mode: the captures feed autograd of the plain
+    # version in check_captured
+    masks = [mask_call_capture(lambda: model.forward_test(batch),
+                               f"{name}_mask")]
+    if train_batch is not None:
+        masks.append(mask_call_capture(
+            lambda: model.forward_train(train_batch), f"{name}_train_mask"))
+    if dtype != "f32":
+        masks = []
     print(f"serve {config}: {CLIPS} images at "
           f"{tuple(batch['img'].shape[1:3])}, {dtype}, "
           f"{model.max_per_img} detections with masks, {rows} classes; "
@@ -2363,7 +2565,7 @@ def det_serve(smi, config, dtype="f32", text_rows=0):
     plain = serve_parity(config, model, batch, dtype)
     del model
     torch.cuda.empty_cache()
-    return launches, model_ms, mask, plain, batch
+    return launches, model_ms, masks, plain, batch
 
 
 def write_voc_tree(voc, scenes, split="val"):
@@ -2470,46 +2672,52 @@ def soit_family(smi, runs, serve_ms, fwd, bwd):
     """Phases 24-25: SOIT R50 (serve f32 and bf16) and DK-DETR R50 LVIS
     (serve f32) at 800x1344; the kernels on their in-model calls (the seg
     encoder at the config's train batch, forward and backward; the
-    box-reference decoder's first and last layers); 8 train mini-steps at
-    the config's batch size and one cuda-vs-torch mini-step. Adds to
-    ``runs``, ``serve_ms``, ``fwd`` and ``bwd``; returns the dynamic-mask
-    calls' records."""
+    box-reference decoder's first and last layers; the dynamic mask call
+    serving and, for SOIT, in a train forward) and the mask calls' plans
+    against staging all or nothing; 8 train mini-steps at the config's
+    batch size and one cuda-vs-torch mini-step. Adds to ``runs``,
+    ``serve_ms``, ``fwd`` and ``bwd``; returns the mask calls' plan
+    records."""
     import numpy as np
     import torch
     from pavenet_tpu_torch.config import Config
-    masks = []
+    plans = []
     for name, config, dtypes, rows in (
             ("soit", SOIT_CONFIG, ("f32", "bf16"), 0),
             ("dkdetr", DKDETR_CONFIG, ("f32",), 1203)):
         cfg = Config.fromfile(str(ROOT / config))
         batch_size = cfg.data.samples_per_gpu
         num_classes = cfg.model.bbox_head.num_classes
+        text_feats, _ = det_text_feats(rows)
         for dtype in dtypes:
-            runs[f"{name}_serve_{dtype}"], serve_ms[(name, dtype)], mask, \
-                plain, batch = det_serve(smi, config, dtype, rows)
-            masks.append(mask)
             if dtype != "f32":
-                del plain, batch
+                out = det_serve(smi, name, config, dtype, rows)
+                runs[f"{name}_serve_{dtype}"], serve_ms[(name, dtype)] = \
+                    out[:2]
+                del out
                 continue
-            captured = capture_det_calls(
-                plain, batch, f"{name}_",
-                {f"{name}_seg_encoder", f"{name}_decoder0",
-                 f"{name}_decoder5"})
-            text_feats, _ = det_text_feats(rows)
             train_batch = {k: torch.as_tensor(v).cuda() for k, v in
                            det_batch_fn(num_classes, text_feats)(
                                np.random.RandomState(2), batch_size,
                                (800, 1344)).items()}
+            runs[f"{name}_serve_{dtype}"], serve_ms[(name, dtype)], masks, \
+                plain, batch = det_serve(
+                    smi, name, config, dtype, rows,
+                    train_batch if name == "soit" else None)
+            captured = capture_det_calls(
+                plain, batch, f"{name}_",
+                {f"{name}_seg_encoder", f"{name}_decoder0",
+                 f"{name}_decoder5"})
             captured += capture_det_calls(
                 plain, train_batch, f"{name}_train_",
                 {f"{name}_train_seg_encoder", f"{name}_train_decoder5"},
                 train=True)
             del plain, batch, train_batch
             torch.cuda.empty_cache()
-            check_captured(captured, fwd, bwd)
-            del captured
+            check_captured(captured + masks, fwd, bwd)
+            plans += mask_plan_probe(masks)
+            del captured, masks
             torch.cuda.empty_cache()
-        text_feats, _ = det_text_feats(rows)
         runs[f"{name}_train_f32"], _ = train(
             smi, config, {"msda_fwd": SOIT_CALLS, "msda_bwd": SOIT_CALLS},
             batch_size=batch_size,
@@ -2517,7 +2725,7 @@ def soit_family(smi, runs, serve_ms, fwd, bwd):
         torch.cuda.empty_cache()
         train_parity(config, batch_size=batch_size, fixed_topk=True,
                      batch_fn=det_batch_fn(num_classes, text_feats))
-    return masks
+    return plans
 
 
 # ---------------------------------------------------------------------------
@@ -3388,20 +3596,19 @@ def flops_phase(smi):
     """Phase 33: ``tools.get_flops.main`` on the card at 800x1344: the
     flagship (the count equals that of the model built on the card, FLOPs
     positive, the msda line from exactly 11 forward launches), then PETR
-    R50, SOIT R50 (its plain dynamic-mask call counted on the msda line
-    too) and InsPose R50 (their own launches). Returns each run's
-    launches."""
+    R50, SOIT R50 and InsPose R50 (their own launches, each counted once
+    on the msda line). Returns each run's launches."""
     import torch
     from pavenet_tpu_torch.apis.inference import init_detector
     from pavenet_tpu_torch.tools import get_flops
     runs = {}
-    for name, config, calls, counted in FLOPS_RUNS:
+    for name, config, calls in FLOPS_RUNS:
         reset_launches()
         res = get_flops.main([str(ROOT / config), "--device", "cuda"])
         runs[f"get_flops_{name}"] = launches = read_launches()
         check_launches(f"get_flops {name}", launches, {"msda_fwd": calls}, 1)
         f = res["flops"]
-        if not (f["msda_calls"] == counted and f["torch"] > 0
+        if not (f["msda_calls"] == calls and f["torch"] > 0
                 and f["msda"] > 0 and res["params"] > 0):
             raise AssertionError(f"get_flops {name}: {res}")
         if name == "flagship":
@@ -3638,12 +3845,17 @@ def main(argv=None):
     parser.add_argument("--parent", metavar="DIR",
                         help="a checkout of an earlier commit: build its msda "
                         "kernels and time them against this tree's on the "
-                        "encoder inputs (only that phase runs)")
+                        "encoder and mask calls, then SOIT serving of both "
+                        "(only those phases run)")
     parser.add_argument("--rank-worker", nargs=2, metavar=("KIND", "DIR"),
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--serve-worker", metavar="ROOT",
                         help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.rank_worker:
         return rank_worker(*args.rank_worker)
+    if args.serve_worker:
+        return serve_worker(args.serve_worker)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is False)")
@@ -3686,7 +3898,10 @@ def main(argv=None):
         f"{n} {tuple(loc.shape)}" for n, _, _, loc, _ in captured),
         flush=True)
     if args.parent:
-        compare_parent(_ext, args.parent, captured)
+        compare_parent(_ext, args.parent, captured, mask_calls())
+        del captured
+        torch.cuda.empty_cache()
+        serve_turns(args.parent)
         return
 
     # 4-7. kernels vs plain, then what bounds the msda kernels
@@ -3795,7 +4010,7 @@ def main(argv=None):
     lap("19-23")
     # 24-25. SOIT R50 and DK-DETR R50 LVIS: serve, the kernels on their
     # in-model calls, train, cuda against torch
-    mask_calls = soit_family(smi, runs, serve_ms, fwd, bwd)
+    mask_plans = soit_family(smi, runs, serve_ms, fwd, bwd)
     torch.cuda.empty_cache()
     # 26. instance scenes and a VOC tree through the test CLI
     runs.update(det_cli(smi))
@@ -3846,8 +4061,8 @@ def main(argv=None):
     def frames5(records):
         """The T=5 encoder call's numbers, in-model, f32, the PETR family's
         calls (random and in-model), SOIT's and DK-DETR's in-model seg
-        encoder and box-reference decoder calls and InsPose's level-0 and
-        level-4 star calls, f32."""
+        encoder, box-reference decoder and dynamic mask calls and InsPose's
+        level-0 and level-4 star calls, f32."""
         out = {}
         for case, suffix in (("frames5_encoder0", "frames5_in_model"),
                              ("petr_encoder", "petr_encoder"),
@@ -3866,6 +4081,10 @@ def main(argv=None):
                              ("soit_decoder5", "soit_decoder5_in_model"),
                              ("soit_train_decoder5",
                               "soit_decoder5_b2_in_model"),
+                             ("soit_mask", "soit_mask_in_model"),
+                             ("dkdetr_mask", "dkdetr_mask_in_model"),
+                             ("soit_train_mask",
+                              "soit_mask_b2_train_in_model"),
                              ("inspose_l0_cls_star",
                               "inspose_star_l0_in_model"),
                              ("inspose_l4_cls_star",
@@ -3885,7 +4104,7 @@ def main(argv=None):
                       "pavenet_tpu/ops/pallas/msda.py:334",
                       launches_by_run=by_run("msda_fwd"),
                       merged_probe_ms_in_model=merged["fwd_merged_ms"],
-                      dynamic_mask_plain=mask_calls, **frames5(fwd)),
+                      dynamic_mask_plans=mask_plans, **frames5(fwd)),
         kernel_record("msda_bwd", bwd,
                       runs["flagship_train_f32"]["msda_bwd"],
                       "pavenet_tpu/ops/pallas/msda_cs.py:662, "

@@ -58,21 +58,40 @@
 // recomputes the taps' geometry, and the lane that owns a tap writes its
 // sums in pass 0 and adds the later passes' to them (the same thread, so
 // no atomics).
+// At D = 2 (the dynamic mask call of SOIT and DK-DETR) an item is one lane
+// of 2 channels: the per-corner dot g . v is two multiply-adds, and every
+// vector the lane moves (g, value, a reduction, the shared table's rows
+// and their flush) is 8 bytes, 8-byte reductions (red.global.add.v2.f32)
+// where wider heads take 16; the plan stages every level that fits.  Its
+// lane loads the geometry (locations and weights) of four taps at once
+// instead of waiting for each tap's in turn.
 #include "msda_common.cuh"
 
 namespace {
 
 using namespace msda;
 
+// x added into global memory at p: one vector reduction (kW = 2 or 4
+// floats, p aligned to the vector)
+template <int kW>
+__device__ __forceinline__ void red_add_vec(float* p, const float (&x)[kW]) {
+  static_assert(kW == 2 || kW == 4, "reduction width");
+  if constexpr (kW == 4)
+    red_add_v4(p, x[0], x[1], x[2], x[3]);
+  else
+    red_add_v2(p, x[0], x[1]);
+}
+
 // s * gr, this lane's kVec channels of one corner row, added into
-// grad_value at p (global: 16-byte vector reductions) or into the shared
+// grad_value at p (global: one vector reduction) or into the shared
 // table (one atomic per channel, the channel order rotated by ``rot``)
 template <int kVec>
 __device__ __forceinline__ void scatter_global(float* p, float s,
                                                const float (&gr)[kVec]) {
+  float x[kVec];
 #pragma unroll
-  for (int e = 0; e < kVec; e += 4)
-    red_add_v4(p + e, s * gr[e], s * gr[e + 1], s * gr[e + 2], s * gr[e + 3]);
+  for (int e = 0; e < kVec; ++e) x[e] = s * gr[e];
+  red_add_vec<kVec>(p, x);
 }
 template <int kVec>
 __device__ __forceinline__ void scatter_shared(float* p, float s,
@@ -118,9 +137,15 @@ __global__ void __launch_bounds__(kMaxThreads)
   constexpr int kPasses = D / kPassD;
   constexpr int kVec = Lanes<kPassD, 4>::kVec;
   constexpr int kGroup = Lanes<kPassD, 4>::kGroup;
+  // taps whose geometry a lane loads at once: at D = 2 a lane alone on
+  // its item would otherwise wait for each tap's loads in turn
+  constexpr int kAhead = D == 2 ? 4 : 1;
   constexpr bool kSums = kMode != kNoSums;
   constexpr bool kShared = kMode != kNoScatter && kMode != kNoShared;
   constexpr bool kDirect = kMode != kNoScatter && kMode != kNoDirect;
+  // the shared table is zeroed and flushed kW floats at a time (D = 2:
+  // one 8-byte row)
+  constexpr int kW = D < 4 ? D : 4;
   extern __shared__ __align__(16) float gtab[];
   __shared__ Level lvs[kMaxLevels];
   if (kMode == kEmpty) return;
@@ -134,9 +159,9 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* gvb = grad_value + base;
   load_levels(tb, lvs);
   if (kShared) {
-    float4* t4 = reinterpret_cast<float4*>(gtab);
-    for (int i = threadIdx.x; i < tb.staged_rows * D / 4; i += blockDim.x)
-      t4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float zero[kW] = {};
+    for (int i = threadIdx.x; i < tb.staged_rows * D / kW; i += blockDim.x)
+      store_vec(gtab + i * kW, zero);
   }
   __syncthreads();
 
@@ -153,19 +178,11 @@ __global__ void __launch_bounds__(kMaxThreads)
     const float* lp = loc + bqh * LP * 2;
     const float* ap = attn + bqh * LP;
     const int ch = pass * kPassD + g * kVec;  // this lane's first channel
-    float gr[kVec];
-#pragma unroll
-    for (int e = 0; e < kVec; e += 4) {
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (active)
-        x = __ldg(reinterpret_cast<const float4*>(grad_out + bqh * D + ch +
-                                                  e));
-      gr[e] = x.x; gr[e + 1] = x.y; gr[e + 2] = x.z; gr[e + 3] = x.w;
-    }
-    for (int t0 = 0; t0 < LP; t0 += kGroup) {
-      Tap mine{0, 0.f, 0.f, 0.f};
-      if (active && t0 + g < LP)
-        mine = tap_geometry(lvs, t0 + g, tb.P, lp, ap);
+    float gr[kVec] = {};
+    if (active) load_vec<true>(grad_out + bqh * D + ch, gr);
+    // one round of kGroup taps from tap t0, lane g holding tap t0 + g's
+    // geometry in ``mine``
+    auto one_round = [&](const Tap& mine, const int t0) {
       // this lane's part of each tap's three sums, reduced per round
       float s_attn[kGroup], s_x[kGroup], s_y[kGroup];
 #pragma unroll
@@ -238,25 +255,48 @@ __global__ void __launch_bounds__(kMaxThreads)
           *gl = make_float2(prev.x + o_x, prev.y + o_y);
         }
       }
+    };
+    if constexpr (kAhead == 1) {
+      for (int t0 = 0; t0 < LP; t0 += kGroup) {
+        Tap mine{0, 0.f, 0.f, 0.f};
+        if (active && t0 + g < LP)
+          mine = tap_geometry(lvs, t0 + g, tb.P, lp, ap);
+        one_round(mine, t0);
+      }
+    } else {  // D = 2: one lane an item, kAhead taps' loads issued together
+      for (int t0 = 0; t0 < LP; t0 += kAhead) {
+        Tap ahead[kAhead];
+#pragma unroll
+        for (int k = 0; k < kAhead; ++k) {
+          ahead[k] = Tap{0, 0.f, 0.f, 0.f};
+          if (active && t0 + k < LP)
+            ahead[k] = tap_geometry<true>(lvs, t0 + k, tb.P, lp, ap);
+        }
+#pragma unroll
+        for (int k = 0; k < kAhead; ++k) one_round(ahead[k], t0 + k);
+      }
     }
   }
 
   if (!kShared || tb.staged_rows == 0) return;
   __syncthreads();
-  // flush the shared table: one vector reduction per 4 channels of a row
+  // flush the shared table: one vector reduction per kW channels of a row
   // that any tap of the block reached
-  constexpr int kV4 = D / 4;
+  constexpr int kPerRow = D / kW;
   for (int l = 0; l < tb.L; ++l) {
     const Level lv = lvs[l];
     if (!staged(lv)) continue;
-    const float4* src = reinterpret_cast<const float4*>(
-        gtab + (int64_t)(lv.start - lv.delta) * D);
-    const int n = lv.h * lv.w * kV4;
+    const float* src = gtab + (int64_t)(lv.start - lv.delta) * D;
+    const int n = lv.h * lv.w * kPerRow;
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const float4 x = src[i];
-      if (x.x == 0.f && x.y == 0.f && x.z == 0.f && x.w == 0.f) continue;
-      const int r = i / kV4, c = (i - r * kV4) * 4;
-      red_add_v4(gvb + (lv.start + r) * row + c, x.x, x.y, x.z, x.w);
+      float x[kW];
+      load_vec<false>(src + i * kW, x);
+      bool zero = true;
+#pragma unroll
+      for (int e = 0; e < kW; ++e) zero = zero && x[e] == 0.f;
+      if (zero) continue;
+      const int r = i / kPerRow, c = (i - r * kPerRow) * kW;
+      red_add_vec<kW>(gvb + (lv.start + r) * row + c, x);
     }
   }
 }
@@ -318,13 +358,13 @@ int launch(const void* value, const void* loc, const void* attn,
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16
-// (value only); D in {4, 8, 16, 32, 64, 128, 256}.  loc, attn and grad_out (B,Q,H*D) are
-// float32; grad_value (B,N,H,D) is a zeroed float32 scratch; grad_loc
-// (B,Q,H,L,P,2) and grad_attn (B,Q,H,L,P) are float32 and fully written;
-// all on the device, contiguous, 16-byte aligned.  levels, chunk and
-// threads as msda_fwd (from ops/_ext.py::msda_plan with backward=True: the
-// shared table holds f32 gradient rows).  Returns cudaGetLastError() after
-// the launch (0 = success).
+// (value only); D in {2, 4, 8, 16, 32, 64, 128, 256}.  loc, attn and
+// grad_out (B,Q,H*D) are float32; grad_value (B,N,H,D) is a zeroed float32
+// scratch; grad_loc (B,Q,H,L,P,2) and grad_attn (B,Q,H,L,P) are float32
+// and fully written; all on the device, contiguous, 16-byte aligned.
+// levels, chunk and threads as msda_fwd (from ops/_ext.py::msda_plan with
+// backward=True: the shared table holds f32 gradient rows).  Returns
+// cudaGetLastError() after the launch (0 = success).
 extern "C" int msda_bwd(const void* value, const void* loc, const void* attn,
                         const void* grad_out, void* grad_value, void* grad_loc,
                         void* grad_attn, const int* levels, int L, int dtype,

@@ -76,9 +76,12 @@ __device__ __forceinline__ void load_levels(const Table& tb, Level* lv) {
 // and there are kGroup = D / kVec of them.  The forward takes kMaxVec = 8
 // (32 bytes a lane in f32, 16 in bf16), the backward 4 (16 bytes of its
 // f32 gradient rows; bf16 values load 8 bytes a lane).  D is a power of
-// two from 4: the forward's items take up to a warp (D = 256), the
+// two from 2: the forward's items take up to a warp (D = 256), the
 // backward's at most 8 lanes (D = 32), wider heads running in passes of 32
-// channels (msda_bwd.cu).
+// channels (msda_bwd.cu).  At D = 2 (SOIT's dynamic mask heads, 4 heads of
+// 2 channels) an item is one lane of 2 channels in both directions: 8
+// bytes of a row in f32, 4 in bf16, which is also the alignment a row of
+// head h has (h * 2 elements from a 16-byte aligned base).
 template <int D, int kMaxVec>
 struct Lanes {
   static constexpr int kVec = kMaxVec < D ? kMaxVec : D;
@@ -88,10 +91,11 @@ struct Lanes {
 };
 
 // The head sizes both kernels are compiled for (ops/_ext.py::
-// MSDA_HEAD_DIMS lists the same): the edge case, the tiny configs and the
-// flagship (4, 8, 32), the other powers of two up to SOIT's one 256-channel
-// head.
-#define MSDA_FOR_EACH_HEAD_DIM(X) X(4) X(8) X(16) X(32) X(64) X(128) X(256)
+// MSDA_HEAD_DIMS lists the same): SOIT's and DK-DETR's dynamic mask heads
+// (2), the edge case, the tiny configs and the flagship (4, 8, 32), the
+// other powers of two up to SOIT's one 256-channel head.
+#define MSDA_FOR_EACH_HEAD_DIM(X) \
+  X(2) X(4) X(8) X(16) X(32) X(64) X(128) X(256)
 
 // ---- vector loads and stores, f32 in registers --------------------------
 
@@ -109,8 +113,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
 }
 
 // kVec elements at p (8 f32: two 16-byte loads; 8 bf16: one; 4 f32: one;
-// 4 bf16: one 8-byte load) as floats; kGlobal reads through the read-only
-// path (value is not written during a call)
+// 4 bf16: one 8-byte load; 2 f32: one 8-byte load; 2 bf16: one 4-byte
+// load) as floats; kGlobal reads through the read-only path (value is not
+// written during a call).  p is aligned to the whole vector.
+template <bool kGlobal>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[2]) {
+  const float2* q = reinterpret_cast<const float2*>(p);
+  const float2 r = kGlobal ? __ldg(q) : *q;
+  v[0] = r.x; v[1] = r.y;
+}
+template <bool kGlobal>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&v)[2]) {
+  const unsigned int* q = reinterpret_cast<const unsigned int*>(p);
+  unpack_bf16(kGlobal ? __ldg(q) : *q, v);
+}
 template <bool kGlobal>
 __device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
   const float4* q = reinterpret_cast<const float4*>(p);
@@ -140,6 +157,13 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
   unpack_bf16(r.x, v); unpack_bf16(r.y, v + 2);
 }
 
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&v)[2]) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(v[0], v[1]);
+}
 __device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -167,6 +191,12 @@ __device__ __forceinline__ void red_add_v4(float* p, float a, float b,
                "f"(a), "f"(b), "f"(c), "f"(d)
                : "memory");
 }
+// one 8-byte vector reduction into global memory (sm_90; p 8-byte aligned)
+__device__ __forceinline__ void red_add_v2(float* p, float a, float b) {
+  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(p), "f"(a),
+               "f"(b)
+               : "memory");
+}
 
 // ---- taps ---------------------------------------------------------------
 
@@ -185,12 +215,17 @@ struct Tap {
   __device__ __forceinline__ int mask() const { return code & 15; }
 };
 
+// kEarly issues the weight's load beside the location's, for every tap
+// (the D = 2 backward, whose lane loads four taps' geometry at once);
+// otherwise only an in-range tap loads its weight.
+template <bool kEarly = false>
 __device__ __forceinline__ Tap tap_geometry(const Level* lvs, int t, int P,
                                             const float* lp,
                                             const float* ap) {
   const int l = t / P;
   const Level lv = lvs[l];
   const float2 xy = *reinterpret_cast<const float2*>(lp + 2 * t);
+  const float a = kEarly ? __ldg(ap + t) : 0.f;
   const float x = xy.x * lv.w - 0.5f;
   const float y = xy.y * lv.h - 0.5f;
   Tap tp{l << 4, 0.f, 0.f, 0.f};
@@ -202,7 +237,7 @@ __device__ __forceinline__ Tap tap_geometry(const Level* lvs, int t, int P,
     tp.code = (lv.start + y0 * lv.w + x0) * 128 | l << 4 |
               (in_y0 && in_x0) | (in_y0 && in_x1) << 1 |
               (in_y1 && in_x0) << 2 | (in_y1 && in_x1) << 3;
-    tp.a = __ldg(ap + t);
+    tp.a = kEarly ? a : __ldg(ap + t);
     tp.lx = x - xf;
     tp.ly = y - yf;
   }

@@ -29,7 +29,13 @@
 // the encoder takes about 1300 corner hits per row) are copied once per
 // block into shared memory in the value's dtype and gathered from there.
 // Sums are f32 in registers; the output is written once, 8 channels a
-// lane, in the value's dtype.
+// lane, in the value's dtype.  At D = 2 (SOIT's and DK-DETR's dynamic
+// mask call: 4 heads of 2 channels, one level, 4 points, the instances on
+// the query axis) an item is one lane, 2 channels a corner (8 bytes in
+// f32, 4 in bf16), and the plan stages nothing.  Its weights fill half a
+// 32-byte sector and its output a quarter (the other heads' channels lie
+// between), so this partition moves there about 1.7 times the bytes the
+// bound counts.
 #include "msda_common.cuh"
 
 namespace {
@@ -55,7 +61,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   load_levels(tb, lvs);
   __syncthreads();
 
-  // stage the planned levels of head h, 16 bytes a thread per step
+  // stage the planned levels of head h, one lane's vector (at most 16
+  // bytes) a thread per step
   for (int l = 0; l < tb.L; ++l) {
     const Level lv = lvs[l];
     if (!staged(lv)) continue;
@@ -176,12 +183,13 @@ int launch(const void* value, const void* loc, const void* attn, void* out,
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16
-// (value and out); D in {4, 8, 16, 32, 64, 128, 256}.  loc (B,Q,H,L,P,2) and attn (B,Q,H,L,P)
-// are float32; value, loc, attn and out on the device, contiguous, 16-byte
-// aligned.  levels is a host array of L triples (H_l, W_l, first row of the
-// level in the block's shared table or -1), chunk the queries per block and
-// threads the block size, both from ops/_ext.py::msda_plan.  Returns
-// cudaGetLastError() after the launch (0 = success).
+// (value and out); D in {2, 4, 8, 16, 32, 64, 128, 256}.  loc
+// (B,Q,H,L,P,2) and attn (B,Q,H,L,P) are float32; value, loc, attn and out
+// on the device, contiguous, 16-byte aligned.  levels is a host array of L
+// triples (H_l, W_l, first row of the level in the block's shared table or
+// -1), chunk the queries per block and threads the block size, both from
+// ops/_ext.py::msda_plan.  Returns cudaGetLastError() after the launch (0 =
+// success).
 extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,
                         void* out, const int* levels, int L, int dtype, int B,
                         int N, int Q, int H, int D, int P, int chunk,

@@ -13,9 +13,9 @@ in ``VideoPoseDetector``. Dropout follows ``nn.Module.training``.
 
 The per-instance masks run batched: the instances of an image fold into
 the query axis of one msda call over the image's mask feature, which they
-share. That call is the plain version (``impl='torch'``), as the JAX
-package's ``impl='xla'`` there; every other msda call takes the model's
-``impl``.
+share. That call takes the model's ``impl``, as every other msda call does
+(on the card the hand-written kernels at 4 heads of 2 channels, where the
+JAX package takes its XLA gather, ``impl='xla'``).
 
 Over ``torch.distributed`` ranks the box and mask losses divide by the
 global batch's valid GT count (``parallel/dist.py::global_sum``).
@@ -152,7 +152,8 @@ DYN_HEADS, DYN_POINTS = 4, 4
 
 
 def dynamic_mask_attention(params, mask_feat, pos_embed, token_refs,
-                           spatial_shape, key_padding_mask):
+                           spatial_shape, key_padding_mask,
+                           impl: str = "auto"):
     """Per-instance dynamic deformable attention over the mask feature:
     the 441 parameters of each instance are its 1x1 convs for the sampling
     offsets (8 -> 32), the attention weights (8 -> 16) and the output
@@ -162,9 +163,10 @@ def dynamic_mask_attention(params, mask_feat, pos_embed, token_refs,
     image's instances; pos_embed ``(B, M, n0, 8)``; token_refs ``(B, n0,
     1, 2)``; key_padding_mask ``(B, n0)``. The M instances fold into the
     query axis of one msda call per batch: ``(B, M * n0)`` queries over
-    the image's value, which is neither expanded nor copied. That call is
-    the plain version, as JAX's ``impl='xla'`` here (4 heads of 2
-    channels, 4 points). Returns logits ``(B, M, n0)``."""
+    the image's value, which is neither expanded nor copied: 4 heads of 2
+    channels, one level, 4 points, through ``ms_deform_attn``'s ``impl``
+    ('auto': the kernels on the card, the plain version on the CPU).
+    Returns logits ``(B, M, n0)``."""
     B, M, _ = params.shape
     n0, C = mask_feat.shape[1:]
     q = mask_feat[:, None] + pos_embed                     # (B, M, n0, C)
@@ -189,7 +191,7 @@ def dynamic_mask_attention(params, mask_feat, pos_embed, token_refs,
                                                                2)
     locations = make_sampling_locations(refs, offsets, (spatial_shape,), P)
     out = ms_deform_attn(value, (spatial_shape,), locations, weights,
-                         impl="torch").view(B, M, n0, C)
+                         impl=impl).view(B, M, n0, C)
     out = F.relu(out).to(dt)
     return (torch.einsum("bmnc,bmc->bmn", out, part("out_w", C))
             + part("out_b", 1))
@@ -224,6 +226,7 @@ class SOITDetector(nn.Module):
                  impl: str = "auto", dtype: torch.dtype = torch.float32):
         super().__init__()
         C = embed_dims
+        self.impl = impl    # the dynamic mask call's; the layers keep theirs
         self.num_classes, self.num_query = num_classes, num_query
         self.max_gt, self.max_per_img = max_gt, max_per_img
         self.embed_dims = C
@@ -429,7 +432,7 @@ class SOITDetector(nn.Module):
         logits = dynamic_mask_attention(
             dyn_params, outs["mask_feat"],
             pos.view(B, M, h0 * w0, self.mask_channels), outs["token_refs"],
-            (h0, w0), outs["mask_pad"])
+            (h0, w0), outs["mask_pad"], self.impl)
         return logits.view(B, M, h0, w0)
 
     # ------------------------------------------------------------ training

@@ -44,13 +44,14 @@ _ARGTYPES = {
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 # msda: head sizes the kernels are compiled for (csrc/msda_common.cuh
-# MSDA_FOR_EACH_HEAD_DIM: the edge case, the tiny configs, the flagship and
-# the other powers of two up to SOIT's 256), the most levels of one call,
+# MSDA_FOR_EACH_HEAD_DIM: SOIT's and DK-DETR's 2-channel dynamic mask
+# heads, the edge case, the tiny configs, the flagship and the other powers
+# of two up to SOIT's 256), the most levels of one call,
 # what the plan may give a block (Hopper's 227 KB of shared memory less the
 # kernels' 128-byte level table) and an SM (228 KB), and the blocks a call
 # is cut into per direction (4 and 8 per SM of the H100's 132: the
 # backward's smaller chunks spread its reductions)
-MSDA_HEAD_DIMS = (4, 8, 16, 32, 64, 128, 256)
+MSDA_HEAD_DIMS = (2, 4, 8, 16, 32, 64, 128, 256)
 MSDA_MAX_LEVELS = 8
 MSDA_SMEM_BYTES = 232448 - 128
 MSDA_SM_SMEM_BYTES = 233472
@@ -163,10 +164,14 @@ def msda_plan(shapes, B: int, Q: int, H: int, P: int, D: int, dtype,
     value's dtype forward, an f32 gradient table backward) while the taps
     of a block on the level (``chunk * P``) outnumber its rows and the
     table stays within ``smem_bytes`` (at most ``MSDA_SMEM_BYTES``); the
-    other levels are read (and reduced) through L1. The kernels hold 64
-    registers a thread, so an SM runs 1024 threads: a block takes 1024
-    over the number of blocks the SM's shared memory holds (at most 4),
-    and never more than its chunk's lanes need.
+    other levels are read (and reduced) through L1. Rows narrower than a
+    lane's 16-byte f32 vector (D=2, the dynamic mask call) are not staged
+    by the taps' count: the forward stages nothing, since copying a level
+    costs a 32-byte sector per row and a whole SM's shared memory, and the
+    backward stages every level that fits, since its shared table then
+    takes every reduction (on an H100 each beat the other choice at the
+    mask call's serve and train shapes, by 1.3-2.1 times forward and
+    1.13-1.20 backward). Blocks are sized by ``msda_partition``.
     """
     shapes = tuple((int(h), int(w)) for h, w in shapes)
     L = len(shapes)
@@ -183,24 +188,46 @@ def msda_plan(shapes, B: int, Q: int, H: int, P: int, D: int, dtype,
     if min(B, Q, H, P) < 1 or min(min(s) for s in shapes) < 1:
         raise ValueError(f"msda: empty call B={B} Q={Q} H={H} P={P} "
                          f"levels {shapes}")
-    # a block stages rows of the value's dtype forward and f32 gradient
-    # rows backward; a lane owns 8 channels forward, 4 backward, where the
-    # backward takes wide heads 32 channels a pass
-    row_bytes = D * (4 if backward or dtype == torch.float32 else 2)
-    lanes = (min(D, 32) // min(D, 4) if backward     # lanes per (b, q, h)
-             else D // min(D, 8))
+    row_bytes = _msda_row_bytes(D, dtype, backward)
+    narrow = D * 4 < 16
     chunks = max(1, -(-MSDA_BLOCKS_PER_CALL[backward] // (B * H)))
     chunk = -(-Q // chunks)
-    smem_row, rows = [-1] * L, 0
+    staged, rows = [], 0
     for l in sorted(range(L), key=lambda l: shapes[l][0] * shapes[l][1]):
         n = shapes[l][0] * shapes[l][1]
-        if chunk * P <= n or (rows + n) * row_bytes > smem_bytes:
+        wanted = backward if narrow else chunk * P > n
+        if not wanted or (rows + n) * row_bytes > smem_bytes:
             break
-        smem_row[l], rows = rows, rows + n
+        staged.append(l)
+        rows += n
+    return msda_partition(shapes, chunk, tuple(staged), D, dtype, backward)
+
+
+def _msda_row_bytes(D: int, dtype, backward: bool) -> int:
+    """Bytes of a staged row: the value's dtype forward, f32 gradient rows
+    backward."""
+    return D * (4 if backward or dtype == torch.float32 else 2)
+
+
+def msda_partition(shapes, chunk: int, staged, D: int, dtype,
+                   backward: bool = False) -> MsdaPlan:
+    """The plan of ``chunk`` queries a block that stages the levels
+    ``staged`` (indices, packed in that order into the block's table).
+
+    The kernels hold 64 registers a thread, so an SM runs 1024 threads: a
+    block takes 1024 over the number of blocks the SM's shared memory
+    holds (228 KB, 1 KB of it reserved per block, at most 4), in whole
+    warps, and never more than its chunk's lanes need (a lane owns 8
+    channels forward, 4 backward, where the backward takes wide heads 32
+    channels a pass)."""
+    shapes = tuple((int(h), int(w)) for h, w in shapes)
+    row_bytes = _msda_row_bytes(D, dtype, backward)
+    lanes = (min(D, 32) // min(D, 4) if backward     # lanes per (b, q, h)
+             else D // min(D, 8))
+    smem_row, rows = [-1] * len(shapes), 0
+    for l in staged:
+        smem_row[l], rows = rows, rows + shapes[l][0] * shapes[l][1]
     smem = rows * row_bytes
-    # the SM's 1024 threads (64 registers each) among the blocks its shared
-    # memory holds (228 KB, 1 KB of it reserved per block), at most 4, in
-    # whole warps
     blocks = min(4, MSDA_SM_SMEM_BYTES // (smem + 128 + 1024))
     threads = min(1024 // blocks // 32 * 32, -(-chunk * lanes // 32) * 32)
     return MsdaPlan(chunk, threads,
@@ -239,15 +266,16 @@ def _check_msda(name: str, value, shapes, loc, attn, **more):
 
 
 def msda_args(name: str, value, shapes, loc, attn, backward=False,
-              smem_bytes=MSDA_SMEM_BYTES, **more):
+              smem_bytes=MSDA_SMEM_BYTES, plan=None, **more):
     """Check one msda launch; returns its C arguments after the tensors:
     the level table (a host array), L, dtype, B, N, Q, H, D, P, chunk,
-    threads (the plan of ``msda_plan``)."""
+    threads (``plan``, by default that of ``msda_plan``)."""
     shapes = tuple((int(h), int(w)) for h, w in shapes)
     B, N, Q, H, D, L, P = _check_msda(name, value, shapes, loc, attn,
                                       **more)
-    plan = msda_plan(shapes, B, Q, H, P, D, value.dtype, backward,
-                     smem_bytes)
+    if plan is None:
+        plan = msda_plan(shapes, B, Q, H, P, D, value.dtype, backward,
+                         smem_bytes)
     flat = [x for level in plan.levels for x in level]
     return ((ctypes.c_int * len(flat))(*flat), L, _DTYPE_CODES[value.dtype],
             B, N, Q, H, D, P, plan.chunk, plan.threads)

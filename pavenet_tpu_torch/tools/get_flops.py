@@ -19,9 +19,8 @@ features, and InsPose: one image): ``torch.utils.flop_counter`` counts the
 torch operations, and the msda and window-attention calls, which run
 through the hand-written kernels where the counter cannot see them, are
 counted from each call's shapes (``ops/flops.py``: every tap and window) on
-lines of their own, SOIT's and DK-DETR's dynamic-mask msda call (the plain
-version, whose ``grid_sample`` the counter does not count) among them. They
-are not compared with XLA's cost analysis.
+lines of their own, SOIT's and DK-DETR's dynamic-mask msda call among them.
+They are not compared with XLA's cost analysis.
 ``main(argv)`` returns the counts.
 """
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""The head sizes the kernels take: msda at every power of two from 4 to
-256 (SOIT's seg encoder runs one 256-channel head), window attention at
+"""The head sizes the kernels take: msda at every power of two from 2 to
+256 (SOIT's seg encoder runs one 256-channel head, its dynamic mask call
+4 heads of 2 channels), window attention at
 8, 16, 32 and 64 in both directions and dtypes, on the CPU.
 
 The kernels run only on the card (``chip_smoke.py`` holds them against the
@@ -72,10 +73,12 @@ def test_msda_plain_at_one_256_channel_head_bf16():
 
 
 @pytest.mark.parametrize("D, fwd_lanes, bwd_lanes", [
-    (16, 2, 4), (64, 8, 8), (128, 16, 8), (256, 32, 8)])
+    (16, 2, 4), (64, 8, 8), (128, 16, 8), (256, 32, 8), (2, 1, 1)])
 def test_plan_takes_the_new_head_sizes(D, fwd_lanes, bwd_lanes):
     """The flagship levels at H=1: a forward item takes D/8 lanes (up to a
-    warp), a backward item 8 lanes at most (32 channels a pass); forward,
+    warp; one at D=2), a backward item 8 lanes at most (32 channels a
+    pass; one at D=2); at D=2 the forward stages nothing and the backward
+    every level that fits; else forward,
     f32 rows of D*4 bytes stage only what fits (at D=256 no level: the
     coarsest has 273 rows of 1 KB); backward, a block's 64 queries have
     fewer taps (256) than any level has rows."""
@@ -87,7 +90,10 @@ def test_plan_takes_the_new_head_sizes(D, fwd_lanes, bwd_lanes):
                                    -(-plan.chunk * lanes // 32) * 32)
         rows = sum(h * w for h, w, r in plan.levels if r >= 0)
         assert plan.smem == rows * D * 4 <= _ext.MSDA_SMEM_BYTES
-        assert (rows == 0) == (backward or D == 256)
+        if D == 2:     # every level backward (178,584 B), none forward
+            assert rows == (22323 if backward else 0)
+        else:
+            assert (rows == 0) == (backward or D == 256)
     # three blocks an SM (their tables of 69,888 B): 320 threads each, a
     # whole number of warps
     plan = _ext.msda_plan(FLAGSHIP, 3, 2000, 8, 4, 64, torch.float32)
@@ -95,7 +101,8 @@ def test_plan_takes_the_new_head_sizes(D, fwd_lanes, bwd_lanes):
 
 
 def test_plan_refusal_names_the_head_sizes():
-    with pytest.raises(ValueError, match=r"\(4, 8, 16, 32, 64, 128, 256\)"):
+    with pytest.raises(ValueError,
+                       match=r"\(2, 4, 8, 16, 32, 64, 128, 256\)"):
         _ext.msda_plan(SMALL, 1, 4, 1, 4, 48, torch.float32)
 
 

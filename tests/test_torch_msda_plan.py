@@ -19,6 +19,13 @@ from pavenet_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
 FLAGSHIP = ((100, 168), (50, 84), (25, 42), (13, 21))
 EDGE = ((6, 9), (3, 5), (1, 3), (2, 1))
 SMALL = ((5, 7), (1, 1), (3, 2))
+# SOIT's and DK-DETR's dynamic mask call: one level (the 800x1344 bucket's
+# level 0), 4 heads of 2 channels, 4 points, M instances x 16800 queries;
+# MASK_SMALL is its one-level shape at a test's size
+MASK = ((100, 168),)
+MASK_SMALL = ((6, 9),)
+# heads of the partition cases: the mask call's 4, else 2
+HEADS = {MASK_SMALL: 4}
 
 
 @pytest.mark.parametrize("backward, dtype, chunk, threads, smem", [
@@ -62,6 +69,57 @@ def test_plan_edge_levels():
     assert plan.smem == 5 * 4 * 4
 
 
+@pytest.mark.parametrize("B, M, backward, dtype, chunk", [
+    (1, 100, False, torch.float32, 12728),        # SOIT serve
+    (1, 100, False, torch.bfloat16, 12728),
+    (1, 100, True, torch.float32, 6364),
+    (1, 100, True, torch.bfloat16, 6364),
+    (1, 300, False, torch.float32, 38182),        # DK-DETR serve
+    (1, 300, True, torch.float32, 19091),
+    (2, 30, False, torch.float32, 7637),          # SOIT train
+    (2, 30, True, torch.float32, 3819),
+    (1, 30, False, torch.float32, 3819),          # DK-DETR train
+    (1, 30, True, torch.float32, 1910),
+])
+def test_plan_dynamic_mask_call(B, M, backward, dtype, chunk):
+    """The mask call (B, M x 16800, 4, 1, 4, 2): one lane an item in both
+    directions; its one level (16800 rows) is never staged forward (four
+    blocks of 256 threads an SM) and always backward (its 134,400-byte f32
+    gradient table, one block of 1024 threads an SM), whatever the
+    chunk's taps."""
+    plan = _ext.msda_plan(MASK, B, M * 16800, 4, 4, 2, dtype, backward)
+    assert plan.chunk == chunk
+    assert plan.levels == ((100, 168, 0 if backward else -1),)
+    assert (plan.threads, plan.smem) == ((1024, 16800 * 8) if backward
+                                         else (256, 0))
+
+
+@pytest.mark.parametrize("dtype, threads, smem", [
+    (torch.float32, 1024, 16800 * 8), (torch.bfloat16, 320, 16800 * 4)])
+def test_partition_staging_the_mask_level(dtype, threads, smem):
+    """The mask call's forward with its one level staged, as the chip run
+    times it against the plan: the chunk kept, the block sized by its
+    table (one block an SM in f32, three in bf16)."""
+    plan = _ext.msda_plan(MASK, 1, 100 * 16800, 4, 4, 2, dtype)
+    every = _ext.msda_partition(MASK, plan.chunk, (0,), 2, dtype)
+    assert every.chunk == plan.chunk == 12728
+    assert every.levels == ((100, 168, 0),)
+    assert (every.threads, every.smem) == (threads, smem)
+
+
+@pytest.mark.parametrize("shapes, Q, P, D, backward", [
+    (FLAGSHIP, 22323, 4, 32, False), (FLAGSHIP, 22323, 4, 32, True),
+    (EDGE, 9, 15, 4, True), (MASK, 504000, 4, 2, True)])
+def test_plan_is_the_partition_of_its_staged_levels(shapes, Q, P, D,
+                                                    backward):
+    plan = _ext.msda_plan(shapes, 1, Q, 8, P, D, torch.float32, backward)
+    staged = sorted((r, l) for l, (_, _, r) in enumerate(plan.levels)
+                    if r >= 0)
+    assert plan == _ext.msda_partition(shapes, plan.chunk,
+                                       [l for _, l in staged], D,
+                                       torch.float32, backward)
+
+
 def test_plan_respects_the_shared_memory_budget():
     # a 40x200 level of f32 rows (1 MB a head) is never staged; the 20x20
     # level beside it is
@@ -102,7 +160,8 @@ def test_plan_covers_every_query(shapes, B, Q, H, P, D):
 def test_plan_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="levels"):
         _ext.msda_plan(((2, 2),) * 9, 1, 4, 1, 4, 32, torch.float32)
-    for D in (12, 512):       # not a power of two; wider than a head
+    for D in (1, 12, 512):    # narrower than a head; not a power of two;
+                              # wider than a head
         with pytest.raises(ValueError, match="head size"):
             _ext.msda_plan(SMALL, 1, 4, 1, 4, D, torch.float32)
     with pytest.raises(TypeError, match="dtype"):
@@ -201,14 +260,11 @@ def partition_plans(shapes, B, Q, H, P, D, backward):
     """The planner's plan, one that stages every level in chunks of 3
     queries, and one that stages nothing in a single chunk."""
     planned = _ext.msda_plan(shapes, B, Q, H, P, D, torch.float32, backward)
-    rows, every = 0, []
-    for h, w in shapes:
-        every.append((h, w, rows))
-        rows += h * w
     return {"planned": planned,
-            "all_staged": _ext.MsdaPlan(3, 32, tuple(every), rows * D * 4),
-            "direct": _ext.MsdaPlan(Q, 32, tuple((h, w, -1)
-                                                 for h, w in shapes), 0)}
+            "all_staged": _ext.msda_partition(shapes, 3, range(len(shapes)),
+                                              D, torch.float32, backward),
+            "direct": _ext.msda_partition(shapes, Q, (), D, torch.float32,
+                                          backward)}
 
 
 def seeded(shapes, P, D, seed, B=2, Q=7, H=2):
@@ -223,10 +279,12 @@ def seeded(shapes, P, D, seed, B=2, Q=7, H=2):
 
 
 @pytest.mark.parametrize("plan_name", ["planned", "all_staged", "direct"])
-@pytest.mark.parametrize("shapes, P, D", [(EDGE, 15, 4), (SMALL, 4, 8)])
+@pytest.mark.parametrize("shapes, P, D", [(EDGE, 15, 4), (SMALL, 4, 8),
+                                          (SMALL, 4, 2), (MASK_SMALL, 4, 2)])
 def test_partition_forward_matches_plain(shapes, P, D, plan_name):
-    value, loc, w, _ = seeded(shapes, P, D, seed=P + D)
-    plan = partition_plans(shapes, 2, 7, 2, P, D, False)[plan_name]
+    H = HEADS.get(shapes, 2)
+    value, loc, w, _ = seeded(shapes, P, D, seed=P + D, H=H)
+    plan = partition_plans(shapes, 2, 7, H, P, D, False)[plan_name]
     got = emulate(value, shapes, loc, w, plan)
     want = ms_deform_attn_torch(torch.from_numpy(value), shapes,
                                 torch.from_numpy(loc), torch.from_numpy(w))
@@ -234,13 +292,15 @@ def test_partition_forward_matches_plain(shapes, P, D, plan_name):
 
 
 @pytest.mark.parametrize("plan_name", ["planned", "all_staged", "direct"])
-@pytest.mark.parametrize("shapes, P, D", [(EDGE, 15, 4), (SMALL, 4, 8)])
+@pytest.mark.parametrize("shapes, P, D", [(EDGE, 15, 4), (SMALL, 4, 8),
+                                          (SMALL, 4, 2), (MASK_SMALL, 4, 2)])
 def test_partition_backward_matches_autograd(shapes, P, D, plan_name):
     """grad_value, grad_loc and grad_attn of the emulated partition against
     autograd of the plain version (no seeded location lies within 1e-3 px
     of an integer coordinate, where grad_loc jumps)."""
-    value, loc, w, g = seeded(shapes, P, D, seed=P + D + 1)
-    plan = partition_plans(shapes, 2, 7, 2, P, D, True)[plan_name]
+    H = HEADS.get(shapes, 2)
+    value, loc, w, g = seeded(shapes, P, D, seed=P + D + 1, H=H)
+    plan = partition_plans(shapes, 2, 7, H, P, D, True)[plan_name]
     got = emulate(value, shapes, loc, w, plan, g)
     inputs = [torch.from_numpy(a).requires_grad_() for a in (value, loc, w)]
     out = ms_deform_attn_torch(inputs[0], shapes, *inputs[1:])

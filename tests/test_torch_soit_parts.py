@@ -8,7 +8,10 @@ compile: eager JAX calls and ``jax.eval_shape``.
   ``aligned_bilinear`` at factors 4 and 2, within 1e-5 (2e-5 for the
   encoding's sines of arguments up to 2*pi*10).
 - ``dynamic_mask_attention``: the port's instances folded into one msda
-  query axis, JAX's per instance with ``impl='xla'``, within 1e-5.
+  query axis, JAX's per instance with ``impl='xla'``, within 1e-5; and
+  every msda call of a tiny SOIT's ``forward_test``, the mask call
+  included, takes the model's ``impl`` (none pinned to the plain
+  version, so the card runs the kernels on all of them).
 - The GT-mask resize of ``forward_train``: ``F.interpolate(bilinear,
   antialias=True)`` against ``jax.image.resize(bilinear)`` within 1e-5, at
   an exact half and where the target is no exact half; without
@@ -41,7 +44,7 @@ from pavenet_tpu_torch.models.attention.deformable import (
 from pavenet_tpu_torch.models.builder import build_detector
 from pavenet_tpu_torch.models.detectors import soit
 from tests.test_torch_swin import converted_shapes
-from tests.test_torch_soit import det_batch
+from tests.test_torch_soit import TINY, det_batch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 t = torch.from_numpy
@@ -116,6 +119,35 @@ def test_dynamic_mask_attention_matches_jax():
                 (h0, w0), mask[i].reshape(n0), impl="xla"))
             np.testing.assert_allclose(got[i, m], want, atol=1e-5,
                                        err_msg=f"image {i} slot {m}")
+
+
+@pytest.mark.parametrize("impl", ["auto", "cuda"])
+def test_every_msda_call_takes_the_models_impl(impl, monkeypatch):
+    """The tiny SOIT's 4 layer calls (encoder, seg encoder, 2 decoder
+    layers) and its dynamic mask call (the detector module's own, 6
+    detections x the level-0 tokens on the query axis) each pass the
+    model's ``impl``. The calls are recorded and run on the plain version,
+    so that 'cuda' runs on the CPU too."""
+    from pavenet_tpu_torch.models.attention import deformable
+    from pavenet_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
+    calls = []
+
+    def recorder(site):
+        def record(value, shapes, loc, attn, impl="auto"):
+            calls.append((site, impl, loc.shape[1], value.shape[1]))
+            return ms_deform_attn_torch(value, shapes, loc, attn)
+        return record
+
+    monkeypatch.setattr(deformable, "ms_deform_attn", recorder("layer"))
+    monkeypatch.setattr(soit, "ms_deform_attn", recorder("mask"))
+    torch.manual_seed(0)
+    model = soit.SOITDetector(**TINY, dropout=0.0, impl=impl).eval()
+    out = model.forward_test({k: t(v) for k, v in det_batch().items()})
+    assert [site for site, *_ in calls] == ["layer"] * 4 + ["mask"]
+    assert {call_impl for _, call_impl, _, _ in calls} == {impl}
+    _, _, Q, n0 = calls[-1]
+    assert Q == TINY["max_per_img"] * n0
+    assert out["det_masks"].shape[:2] == (2, TINY["max_per_img"])
 
 
 @pytest.mark.parametrize("size,target", [((64, 96), (32, 48)),
