@@ -53,6 +53,7 @@ from ..necks.channel_mapper import ChannelMapper
 from ...core.assigner import hungarian_assign
 from ...ops.ms_deform_attn import ms_deform_attn
 from ...parallel.dist import global_sum
+from ...utils.host_copy import to_host
 from .videopose import VideoPoseDetector, jax_like_init_
 
 Shapes = Tuple[Tuple[int, int], ...]
@@ -591,7 +592,9 @@ class SOITDetector(nn.Module):
         logits' own class count C' (one per row of ``text_feats`` for
         DK-DETR), so every label is below C'. ``topk_idx`` and ``det_idx``
         (B, M) flat indices into Q x C') replace the two selections (a
-        check's hooks)."""
+        check's hooks). On a CUDA device the three come back on the host,
+        in pinned memory, once their copies have landed
+        (``utils/host_copy.py::to_host``); on the CPU as computed."""
         outs = self.forward_outputs(batch["img"], batch["img_shape"],
                                     text_feats=batch.get("text_feats"),
                                     topk_idx=topk_idx)
@@ -618,6 +621,6 @@ class SOITDetector(nn.Module):
         if "scale_factor" in batch:
             sf = batch["scale_factor"]
             det = det / torch.cat([sf, sf], -1)[:, None]
-        return dict(det_bboxes=torch.cat([det, scores[..., None].to(
-                        det.dtype)], -1),
-                    det_labels=labels, det_masks=masks)
+        bboxes = torch.cat([det, scores[..., None].to(det.dtype)], -1)
+        return to_host(dict(det_bboxes=bboxes, det_labels=labels,
+                            det_masks=masks))

@@ -1,6 +1,7 @@
 """The port's SOIT against the benchmark's plain SOIT reference
 (``benchmark/reference/models/detectors/soit.py``), f32 on the CPU, and
-the counters of the mask path and of the gradient all-reduce.
+the counters of the mask path and of the gradient all-reduce; on the card,
+the port's outputs served to pinned host memory.
 
 A tiny SOIT (ResNet-18, 32 wide, one encoder and one decoder layer, 12
 queries, 5 classes, 6 detections) on a 64x96 image with padding, one
@@ -9,6 +10,7 @@ both; no JAX on either side.
 """
 from pathlib import Path
 
+import pytest
 import torch
 
 from benchmark import program
@@ -84,8 +86,29 @@ def test_port_serves_as_the_reference():
         assert torch.equal(b[k], c[k]), k
 
 
+@pytest.mark.cuda
+def test_port_serves_its_outputs_to_pinned_host_memory_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pavenet_tpu_torch.utils.host_copy import to_host
+    cfg = tiny_cfg()
+    with torch.device("meta"):
+        shapes = shapes_of(ref_build(cfg))
+    weights = make_state_dict(shapes, SEED, "cuda")
+    config = dict(config=dict(model=cfg), act_dtype="float32")
+    port = program.build_model(config, weights, "cuda").eval()
+    batch = {k: v.cuda() for k, v in image().items()}
+    copies, nbytes = to_host.copies, to_host.bytes
+    with torch.inference_mode():
+        out = port.forward_test(batch)
+    assert to_host.copies == copies + 1
+    assert to_host.bytes == nbytes + sum(v.nbytes for v in out.values())
+    assert out["det_masks"].shape == (1, 6, 32, 48)
+    for k, v in out.items():
+        assert v.device.type == "cpu" and v.is_pinned(), k
+
+
 def test_reference_refuses_dk_detr_and_trainable_bn():
-    import pytest
     cfg = tiny_cfg()
     with torch.device("meta"):
         for change in (dict(type="opera.DKDETR"),
